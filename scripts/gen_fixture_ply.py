@@ -1,8 +1,7 @@
 """Generate the committed trained-like PLY fixture.
 
-VERDICT r3 item 6 asks for a real Inria-trained PLY excerpt; this
-environment has zero network egress, so no trained capture can be
-fetched. The honest substitute is a COMMITTED, bit-stable Inria-format
+A real Inria-trained PLY excerpt cannot be fetched without network
+access. The honest substitute is a COMMITTED, bit-stable Inria-format
 binary PLY with trained-model statistics (surface-concentrated positions,
 squashed-disc anisotropy, bimodal opacity, SH band decay — see
 data/synthetic.make_inria_like_scene), generated once by this script and

@@ -29,7 +29,7 @@ def ply_bytes(n=200, seed=0, **kw):
 def make_session(**kw):
     kw.setdefault("width", 64)
     kw.setdefault("height", 64)
-    return GaussianSplattingSession(use_pallas=False, **kw)
+    return GaussianSplattingSession(**kw)
 
 
 def test_open_and_stream_load():
@@ -333,6 +333,7 @@ def test_compression_switch_rejected_while_loading():
 
 def test_server_state_and_set_compressions():
     from wgpu_3dgs_viewer_app_tpu.app.server import ViewerServer
+    from wgpu_3dgs_viewer_app_tpu.utils.png import decode_png
 
     s = make_session()
     _, buf = ply_bytes(120, extent=0.5)
@@ -351,9 +352,10 @@ def test_server_state_and_set_compressions():
     assert s.compressions.sh.value == "half"
     assert s.compressions.cov3d.value == "single"
     # frame path with staleness + scale knobs
-    blob1 = vs.frame_jpeg(quality=70, scale=0.5)
-    assert blob1[:2] == b"\xff\xd8"
-    blob2 = vs.frame_jpeg(quality=70, max_age=60.0, scale=0.5)
+    blob1 = vs.frame_png(scale=0.5)
+    assert blob1[:8] == b"\x89PNG\r\n\x1a\n"
+    assert decode_png(blob1).shape[:2] == (s.viewer.cfg.height // 2, s.viewer.cfg.width // 2)
+    blob2 = vs.frame_png(max_age=60.0, scale=0.5)
     assert blob2 == blob1  # served from cache within max_age
 
 
@@ -374,15 +376,15 @@ def test_frame_cache_idle_scene_and_dirty_invalidation():
     real_update = s.update
     s.update = lambda: (renders.append(1), real_update())[1]
 
-    b1 = vs.frame_jpeg(quality=70)
-    b2 = vs.frame_jpeg(quality=70)  # idle: cached, no render
+    b1 = vs.frame_png()
+    b2 = vs.frame_png()  # idle: cached, no render
     assert b2 is b1 and len(renders) == 1
-    assert vs.frame_jpeg(quality=60) != b""  # knob change -> re-render
+    assert vs.frame_png(scale=0.5) != b""  # knob change -> re-render
     assert len(renders) == 2
     vs.handle_event({"type": "orbit", "dx": 10.0, "dy": 0.0})
-    b3 = vs.frame_jpeg(quality=60)
+    b3 = vs.frame_png(scale=0.5)
     assert len(renders) == 3
-    vs.frame_jpeg(quality=60)
+    vs.frame_png(scale=0.5)
     assert len(renders) == 3  # idle again
     assert b3 is not b1
 

@@ -1,5 +1,5 @@
-"""Compacted dup-slot enumeration (TileConfig.dup_scan, VERDICT r4 "kill
-the sentinel slack"): slot d = the d-th candidate PASSING the exact
+"""Compacted dup-slot enumeration (TileConfig.dup_scan, which removes the
+sentinel slack): slot d = the d-th candidate PASSING the exact
 ellipse-tile test among the first K center-out candidates, instead of
 candidate d unconditionally.
 
@@ -11,7 +11,6 @@ Semantics pinned here:
      max_dup passing candidates in center-out order (farthest cells drop).
   3. Compaction invariant: within a splat's slots, live entries pack into
      the low slots (no live slot after a sentinel slot).
-  4. jnp and Pallas(interpret) paths agree exactly.
 """
 
 import jax.numpy as jnp
@@ -22,7 +21,6 @@ from wgpu_3dgs_viewer_app_tpu.ops.binning import (
     SENTINEL_KEY,
     TileConfig,
     _enumerate_entries_jnp,
-    _enumerate_entries_pallas,
 )
 
 
@@ -48,21 +46,11 @@ def _scene(n=512, seed=5):
     )
 
 
-def _enum(cfg, args, impl="jnp"):
-    if impl == "jnp":
-        out = _enumerate_entries_jnp(*args, cfg)
-        # jnp path is (D, N)-major; regroup per splat.
-        n = args[0].shape[0]
-        return tuple(np.asarray(o).reshape(cfg.max_dup, n).T for o in out)
-    out = _enumerate_entries_pallas(*args, cfg, interpret=True)
-    n_pad = np.asarray(out[0]).size // (cfg.max_dup * 128)
-    grouped = tuple(
-        np.asarray(o).reshape(n_pad, cfg.max_dup, 128)
-        .transpose(0, 2, 1).reshape(-1, cfg.max_dup)
-        for o in out
-    )
+def _enum(cfg, args):
+    out = _enumerate_entries_jnp(*args, cfg)
+    # (D, N)-major; regroup per splat.
     n = args[0].shape[0]
-    return tuple(g[:n] for g in grouped)
+    return tuple(np.asarray(o).reshape(cfg.max_dup, n).T for o in out)
 
 
 def _live_sets(keys, p1):
@@ -127,12 +115,3 @@ def test_live_slots_are_packed_low():
     # No live slot may follow a sentinel slot.
     for d in range(1, cfg.max_dup):
         assert not np.any(live[:, d] & ~live[:, d - 1])
-
-
-def test_jnp_and_pallas_interpret_agree():
-    args = _scene(n=256, seed=11)
-    cfg = TileConfig(512, 512, tile=32, max_dup=3, dup_scan=9)
-    j = _enum(cfg, args, impl="jnp")
-    p = _enum(cfg, args, impl="pallas")
-    for a, b in zip(j, p):
-        np.testing.assert_array_equal(a, b)

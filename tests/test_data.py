@@ -272,8 +272,7 @@ def test_streaming_loader_finishes_with_skipped_records():
 
 
 def test_committed_fixture_ply_parses_and_is_trained_like():
-    """The committed Inria-format fixture (tests/fixtures/, VERDICT r3
-    item 6; generated by scripts/gen_fixture_ply.py because this
+    """The committed Inria-format fixture (tests/fixtures/; generated by scripts/gen_fixture_ply.py because this
     environment has no network egress for a real trained capture) must
     parse through the production loader and show trained-model statistics:
     anisotropic log-scales, bimodal opacity, SH band-energy decay."""

@@ -1,7 +1,7 @@
 """Golden-image gate: the committed PNG artifact that pins image formation.
 
 Renders the deterministic fixture scene through the CLI path and compares
-against tests/golden/golden_256.png (round-2 verdict missing #3 / next #8).
+against tests/golden/golden_256.png.
 Regenerate intentionally with `python scripts/gen_golden.py --update`.
 """
 
@@ -23,7 +23,7 @@ def assert_golden_close(img, gold):
     while failing loudly on real drift: a constant change, enumeration
     bug, or kernel regression moves the mean by >> 1 u8 step; localized
     regressions (a wrong tile, a shifted hue cluster) trip the per-tile
-    structural bound even when globally rare (VERDICT r4 weak #6)."""
+    structural bound even when globally rare."""
     assert img.shape == gold.shape
     d = np.abs(img.astype(np.float64) - gold.astype(np.float64))
     assert d.mean() < 1.0, f"golden drift: mean {d.mean():.3f} u8"
@@ -54,7 +54,7 @@ def test_golden_image_matches(tmp_path):
 
 
 def test_golden_gate_fails_on_injected_hue_shift():
-    """Negative control (VERDICT r4 item 6): a 2%-pixel hue shift — the
+    """Negative control: a 2%-pixel hue shift — the
     class of subtle minority-pixel color regression the old tolerances
     could pass — must FAIL the gate."""
     import gen_golden
@@ -75,24 +75,16 @@ def test_golden_gate_fails_on_injected_hue_shift():
         assert_golden_close(img2.astype(gold.dtype), gold)
 
 
-@pytest.mark.tpu
-def test_golden_image_matches_tpu(tmp_path):
-    """On-chip golden gate (VERDICT r3 item 6): the compiled TPU kernel
-    path must reproduce the committed hardware artifact with TIGHT
-    tolerances — same chip + same kernels render deterministically, so any
-    measurable drift is a real image-formation change. Regenerate
-    intentionally from hardware: `python scripts/gen_golden.py --update
-    --backend-tpu` (scripts/hw_validate.sh runs the comparison)."""
+@pytest.mark.gpu
+def test_golden_image_matches_gpu(gpu, tmp_path):
+    """The fixture rendered through the CLI on the card, with the Triton
+    compositor, against the committed CPU golden under the golden's own
+    bound: sort ties and summation order differ across platforms, so
+    isolated pixels may move while the mean holds."""
     import gen_golden
 
-    if not os.path.exists(gen_golden.GOLDEN_TPU):
-        pytest.skip("TPU golden not generated yet (run gen_golden.py "
-                    "--update --backend-tpu on hardware)")
-    out = str(tmp_path / "render_tpu.png")
-    gen_golden.render_golden(out, backend="tpu")
-    img = gen_golden.load_png(out)
-    gold = gen_golden.load_png(gen_golden.GOLDEN_TPU)
-    assert img.shape == gold.shape
-    d = np.abs(img - gold)
-    assert d.mean() < 0.05, f"TPU golden drift: mean {d.mean():.3f} u8"
-    assert d.max() <= 4, f"TPU golden drift: max {d.max()} u8"
+    out = str(tmp_path / "render_gpu.png")
+    gen_golden.render_golden(out, platform="gpu")
+    d = np.abs(gen_golden.load_png(out) - gen_golden.load_png(gen_golden.GOLDEN))
+    assert d.mean() < gen_golden.MAX_MEAN_U8, f"mean {d.mean():.3f} u8"
+    assert d.max() <= gen_golden.MAX_ABS_U8, f"max {d.max()} u8"

@@ -43,7 +43,7 @@ def test_sharded_matches_single_device(n_dev):
     mesh = make_mesh(jax.devices()[:n_dev])
     pod_sharded = shard_pod(pod, mesh)
     img = np.asarray(
-        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3, use_pallas=False)
+        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3)
     )
     assert img.shape == ref.shape
     # Sharded pipeline pads the splat axis (alpha-0 splats) and slices tiles
@@ -60,7 +60,7 @@ def test_sharded_nondivisible_height():
     pod_sharded = shard_pod(pod, mesh)
     ref = np.asarray(single_device_reference(comp, pod, view, proj, cfg))
     img = np.asarray(
-        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3, use_pallas=False)
+        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3)
     )
     assert np.abs(img - ref).mean() < 1e-3
 
@@ -79,15 +79,13 @@ def test_graft_entry_contract():
 
 @pytest.mark.parametrize("n_dev", [4])
 def test_sharded_bench_shaped_geometry(n_dev):
-    """Bench-shaped sharded frame: 512x512, 100k splats (VERDICT round-1
-    'done' bar: >=512x512, >=100k splats, communication ∝ live entries)."""
+    """Bench-shaped sharded frame: 512x512, 100k splats."""
     comp, pod, view, proj, cfg = setup(n=100_000, w=512, h=512)
     ref = np.asarray(single_device_reference(comp, pod, view, proj, cfg))
     mesh = make_mesh(jax.devices()[:n_dev])
     pod_sharded = shard_pod(pod, mesh)
     img = np.asarray(
-        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3,
-                       use_pallas=False)
+        render_sharded(pod_sharded, mesh, comp, cfg, view, proj, sh_degree=3)
     )
     assert img.shape == ref.shape
     assert np.abs(img - ref).mean() < 1e-3
@@ -101,13 +99,13 @@ def test_sharded_capacity_overflow_degrades_not_crashes():
     mesh = make_mesh(jax.devices()[:2])
     pod_sharded = shard_pod(pod, mesh)
     img, stats = render_sharded(pod_sharded, mesh, comp, cfg, view, proj,
-                                sh_degree=0, use_pallas=False,
+                                sh_degree=0,
                                 capacity_factor=0.05, return_stats=True)
     img = np.asarray(img)
     assert img.shape == (cfg.height, cfg.width, 3)
     assert np.isfinite(img).all()
     # The whole point of the undersized buffer: the clamp's losses are
-    # OBSERVABLE, not silent (advisor r2 medium).
+    # OBSERVABLE, not silent.
     assert stats["overflow"] > 0
 
 
@@ -116,11 +114,11 @@ def test_sharded_overflow_counter_zero_at_default_capacity():
     mesh = make_mesh(jax.devices()[:4])
     pod_sharded = shard_pod(pod, mesh)
     img, stats = render_sharded(pod_sharded, mesh, comp, cfg, view, proj,
-                                sh_degree=0, use_pallas=False,
+                                sh_degree=0,
                                 return_stats=True)
     assert stats["overflow"] == 0
     # The same counter is observable in the UI: last_stats() feeds the app
-    # server's /state "parallel" section (VERDICT r3 item 8).
+    # server's /state "parallel" section.
     from wgpu_3dgs_viewer_app_tpu.parallel.render_sharded import last_stats
 
     assert last_stats() == {"overflow": 0, "n_devices": 4}
@@ -136,7 +134,7 @@ def test_sharded_multi_model_matches_single_device_merged():
 
     from wgpu_3dgs_viewer_app_tpu.ops import preprocess as pp
     from wgpu_3dgs_viewer_app_tpu.ops.binning import enumerate_entries_from_pre
-    from wgpu_3dgs_viewer_app_tpu.ops.fused import sort_and_range_entries
+    from wgpu_3dgs_viewer_app_tpu.ops.binning import sort_and_range_entries
     from wgpu_3dgs_viewer_app_tpu.parallel import render_frame_sharded_multi
 
     comp, pod_a, view, proj, cfg = setup(n=640)
@@ -150,8 +148,7 @@ def test_sharded_multi_model_matches_single_device_merged():
     parts = []
     for i, pod in enumerate((pod_a, pod_b)):
         pre = pp(pod, comp, view, proj, models[i], cfg.width, cfg.height, sh_degree=3)
-        parts.append(enumerate_entries_from_pre(pre, cfg_m, impl="jnp",
-                                                model_rank=ranks[i]))
+        parts.append(enumerate_entries_from_pre(pre, cfg_m, model_rank=ranks[i]))
     keys, p1, p2, p3 = (jnp.concatenate([p[j] for p in parts]) for j in range(4))
     entries = sort_and_range_entries(keys, p1, p2, p3, cfg_m)
     ref = np.asarray(over_background(
@@ -162,7 +159,7 @@ def test_sharded_multi_model_matches_single_device_merged():
     pods = (shard_pod(pod_a, mesh), shard_pod(pod_b, mesh))
     img, overflow = render_frame_sharded_multi(
         pods, mesh, "splats", comp, cfg, view, proj, models, ranks,
-        jnp.zeros(3, jnp.float32), sh_degree=3, use_pallas=False,
+        jnp.zeros(3, jnp.float32), sh_degree=3,
         ragged=False,
     )
     img = np.asarray(img)[: cfg.height]

@@ -19,7 +19,6 @@ from wgpu_3dgs_viewer_app_tpu.ops import (
     build_entry_planes,
     build_tile_lists,
     composite_tiles_jnp,
-    composite_tiles_pallas,
     preprocess,
     rasterize_reference,
 )
@@ -48,16 +47,6 @@ def test_tiled_matches_bruteforce_oracle():
     # tiled path, so near-equal-depth overlaps may swap order.
     assert np.abs(img - ref).mean() < 2e-3
     assert np.abs(img - ref).max() < 0.05
-
-
-def test_pallas_interpret_matches_jnp():
-    _, _, pre, _, _ = setup_scene(n=256, w=64, h=64, sh_degree=1)
-    cfg = TileConfig(64, 64, tile=16, max_dup=16)
-    lists = build_tile_lists(pre, cfg)
-    planes = build_entry_planes(pre, lists, cfg)
-    a = composite_tiles_jnp(planes, cfg)
-    b = composite_tiles_pallas(planes, cfg, interpret=True)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
 
 def test_nonsquare_viewport_and_edge_tiles():
@@ -213,25 +202,6 @@ def test_v2_payload_carry_matches_oracle():
     assert np.abs(img - ref).max() < 0.08
 
 
-@pytest.mark.parametrize("flat", [False, True])
-@pytest.mark.parametrize("transposed,split", [(False, 1), (True, 1), (True, 2)])
-def test_v2_pallas_interpret_matches_jnp(flat, transposed, split):
-    from wgpu_3dgs_viewer_app_tpu.ops import (
-        build_sorted_entries,
-        composite_tiles_jnp_v2,
-        composite_tiles_pallas_v2,
-    )
-
-    _, _, pre, _, _ = setup_scene(n=256, w=64, h=64, sh_degree=1)
-    cfg = TileConfig(64, 64, tile=16, max_dup=16)
-    entries = build_sorted_entries(pre, cfg)
-    a = composite_tiles_jnp_v2(entries, cfg, flat_mode=flat)
-    b = composite_tiles_pallas_v2(entries, cfg, flat_mode=flat,
-                                  interpret=True, transposed=transposed,
-                                  split=split)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
 def test_f16_bit_roundtrip():
     from wgpu_3dgs_viewer_app_tpu.ops.binning import _pack2xf16, unpack2xf16
 
@@ -249,214 +219,32 @@ def test_f16_bit_roundtrip():
     np.testing.assert_array_equal(np.asarray(z), 0.0)
 
 
-def test_enum_pallas_interpret_matches_jnp():
-    from wgpu_3dgs_viewer_app_tpu.ops import build_sorted_entries, composite_tiles_jnp_v2
-
-    _, _, pre, _, _ = setup_scene(n=300, w=96, h=96, sh_degree=1)
-    cfg = TileConfig(96, 96, tile=16, max_dup=8)
-    a = build_sorted_entries(pre, cfg, impl="jnp")
-    b = build_sorted_entries(pre, cfg, impl="interpret")
-    # Entry orders differ ((D, N)-major vs (row, d, lane)) and the Pallas
-    # path pads N to a lane multiple, but per-tile ranges and the rendered
-    # image must agree exactly.
-    np.testing.assert_array_equal(np.asarray(a.tile_counts), np.asarray(b.tile_counts))
-    assert int(a.n_valid) == int(b.n_valid)
-    img_a = composite_tiles_jnp_v2(a, cfg)
-    img_b = composite_tiles_jnp_v2(b, cfg)
-    np.testing.assert_allclose(np.asarray(img_a), np.asarray(img_b), atol=1e-6)
-
-
-def test_fused_kernel_matches_two_stage():
+def test_model_rank_in_keys():
+    """The multi-model pass keys every entry with its model rank, above
+    the depth field; the rank must not change tile ranges or pixels."""
     from wgpu_3dgs_viewer_app_tpu.ops import (
         build_sorted_entries,
-        build_sorted_entries_fused,
         composite_tiles_jnp_v2,
+        enumerate_entries_from_pre,
     )
+    from wgpu_3dgs_viewer_app_tpu.ops.binning import SENTINEL_KEY
 
-    for comp, deg, mode in (
-        (FULL, 3, 0),
-        (Compressions(), 3, 0),          # norm8 + half (defaults)
-        (Compressions(ShCompression.HALF, Cov3dCompression.HALF), 2, 0),
-        (Compressions(ShCompression.REMOVE, Cov3dCompression.SINGLE), 0, 1),
-    ):
-        scene = make_random_scene(700, seed=9, extent=1.2, scale_range=(0.01, 0.05))
-        pod = {k: jnp.asarray(v) for k, v in pack_gaussians(scene, comp).items()}
-        cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))
-        view, proj = jnp.asarray(cam.view()), jnp.asarray(cam.projection(1.0))
-        cfg = TileConfig(128, 128, tile=16, max_dup=8)
-        pre = preprocess(
-            pod, comp, view, proj, jnp.eye(4), 128, 128,
-            sh_degree=deg, display_mode=mode,
-        )
-        a = build_sorted_entries(pre, cfg, impl="jnp")
-        b = build_sorted_entries_fused(
-            pod, comp, cfg, view, proj, jnp.eye(4),
-            sh_degree=deg, display_mode=mode, interpret=True,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(a.tile_counts), np.asarray(b.tile_counts)
-        )
-        flat = mode != 0
-        img_a = composite_tiles_jnp_v2(a, cfg, flat_mode=flat)
-        img_b = composite_tiles_jnp_v2(b, cfg, flat_mode=flat)
-        np.testing.assert_allclose(
-            np.asarray(img_a), np.asarray(img_b), atol=1e-5,
-            err_msg=f"comp={comp} deg={deg} mode={mode}",
-        )
-
-
-def test_fused_kernel_gated_matches_two_stage():
-    """Gated fused front-end (round-2 verdict next #6): mask bits,
-    per-splat edits, selection edit + highlight through the fused kernel
-    produce the same tile ranges and image as the jnp preprocess path."""
-    from wgpu_3dgs_viewer_app_tpu.core.edit import (
-        EDIT_FLAG_ENABLED,
-        EDIT_FLAG_HIDDEN,
-        EDIT_FLAG_OVERRIDE_COLOR,
-        make_edit_soa,
-    )
-    from wgpu_3dgs_viewer_app_tpu.ops import (
-        build_sorted_entries,
-        build_sorted_entries_fused,
-        composite_tiles_jnp_v2,
-    )
-
-    comp = Compressions()
-    n = 700
-    scene = make_random_scene(n, seed=11, extent=1.2, scale_range=(0.01, 0.05))
-    pod = {k: jnp.asarray(v) for k, v in pack_gaussians(scene, comp).items()}
-    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))
-    view, proj = jnp.asarray(cam.view()), jnp.asarray(cam.projection(1.0))
-    cfg = TileConfig(128, 128, tile=16, max_dup=8)
-    n_pad = pod["pos"].shape[-2] * 128  # gating arrays live at pod padding
-
-    rng = np.random.default_rng(0)
-    mask = np.zeros(n_pad, np.uint8)
-    mask[:n] = rng.random(n) > 0.3
-    sel = np.zeros(n_pad, np.uint8)
-    sel[:n] = rng.random(n) > 0.5
-    flags, ergb, eprm = make_edit_soa(n_pad)
-    flags[: n // 3] = EDIT_FLAG_ENABLED
-    flags[n // 3 : n // 2] = EDIT_FLAG_ENABLED | EDIT_FLAG_OVERRIDE_COLOR
-    flags[10:20] |= EDIT_FLAG_ENABLED | EDIT_FLAG_HIDDEN
-    ergb[: n // 3] = [0.25, 1.3, 0.9]
-    ergb[n // 3 : n // 2] = [0.9, 0.2, 0.1]
-    eprm[: n // 2] = [0.2, 0.3, 1.4, 0.8]
-    edit = (jnp.asarray(flags), jnp.asarray(ergb), jnp.asarray(eprm))
-    sel_edit = (
-        jnp.uint32(EDIT_FLAG_ENABLED),
-        jnp.asarray([0.15, 1.2, 1.0], jnp.float32),
-        jnp.asarray([0.1, 0.2, 1.0, 0.9], jnp.float32),
-    )
-    hl = jnp.asarray([1.0, 0.0, 1.0, 0.4], jnp.float32)
-
-    # Sub-combinations hit the kernel's separate static paths.
-    cases = [
-        dict(mask_bits=jnp.asarray(mask)),
-        dict(edit=edit),
-        dict(selection_bits=jnp.asarray(sel), selection_edit=sel_edit),
-        dict(selection_bits=jnp.asarray(sel), highlight_rgba=hl),
-        dict(mask_bits=jnp.asarray(mask), edit=edit,
-             selection_bits=jnp.asarray(sel), selection_edit=sel_edit,
-             highlight_rgba=hl),
-    ]
-    for kw in cases:
-        pre = preprocess(
-            pod, comp, view, proj, jnp.eye(4), 128, 128, sh_degree=2, **kw
-        )
-        a = build_sorted_entries(pre, cfg, impl="jnp")
-        b = build_sorted_entries_fused(
-            pod, comp, cfg, view, proj, jnp.eye(4), sh_degree=2,
-            interpret=True, **kw
-        )
-        np.testing.assert_array_equal(
-            np.asarray(a.tile_counts), np.asarray(b.tile_counts),
-            err_msg=f"gates={sorted(kw)}",
-        )
-        img_a = composite_tiles_jnp_v2(a, cfg)
-        img_b = composite_tiles_jnp_v2(b, cfg)
-        np.testing.assert_allclose(
-            np.asarray(img_a), np.asarray(img_b), atol=2e-5,
-            err_msg=f"gates={sorted(kw)}",
-        )
-
-
-def test_geometry_pass_fused_matches_preprocess():
-    """The fused query-geometry pass (ops/fused.preprocess_geometry_fused)
-    == ops/preprocess.py at degree 0, including mask + per-splat edit
-    gating — the query path's contract (app/state._preprocess_selected)."""
-    from wgpu_3dgs_viewer_app_tpu.core.edit import EDIT_FLAG_ENABLED, make_edit_soa
-    from wgpu_3dgs_viewer_app_tpu.ops.fused import preprocess_geometry_fused
-
-    comp = Compressions()
-    n = 700
-    scene = make_random_scene(n, seed=21, extent=1.2, scale_range=(0.01, 0.05))
-    pod = {k: jnp.asarray(v) for k, v in pack_gaussians(scene, comp).items()}
-    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))
-    view, proj = jnp.asarray(cam.view()), jnp.asarray(cam.projection(1.0))
-    n_pad = pod["pos"].shape[-2] * 128
-    rng = np.random.default_rng(2)
-    mask = np.ones(n_pad, np.uint8)
-    mask[:n] = rng.random(n) > 0.3
-    flags, ergb, eprm = make_edit_soa(n_pad)
-    flags[: n // 2] = EDIT_FLAG_ENABLED
-    eprm[: n // 2] = [0.0, 0.0, 1.0, 0.7]  # alpha edit: shifts extents/valid
-    edit = (jnp.asarray(flags), jnp.asarray(ergb), jnp.asarray(eprm))
-
-    for mode in (0, 1, 2):
-        for kw in (dict(), dict(mask_bits=jnp.asarray(mask), edit=edit)):
-            a = preprocess(pod, comp, view, proj, jnp.eye(4), 128, 128,
-                           sh_degree=0, display_mode=mode, **kw)
-            b = preprocess_geometry_fused(pod, comp, view, proj, jnp.eye(4),
-                                          128, 128, display_mode=mode,
-                                          interpret=True, **kw)
-            ctx = f"mode={mode} gated={bool(kw)}"
-            np.testing.assert_array_equal(
-                np.asarray(a.valid), np.asarray(b.valid), err_msg=ctx)
-            for f in ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c",
-                      "alpha", "depth", "radius"):
-                np.testing.assert_allclose(
-                    np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                    rtol=2e-5, atol=2e-5, err_msg=f"{ctx} field={f}")
-
-
-def test_fused_model_rank_in_keys():
-    """Regression: the fused kernel must read the model rank from the same
-    params slot the packer writes (fused.MODEL_RANK_SLOT). With a wrong slot
-    every model keys as rank 0 and multi-model layering silently degrades."""
-    from wgpu_3dgs_viewer_app_tpu.ops import build_sorted_entries, composite_tiles_jnp_v2
-    from wgpu_3dgs_viewer_app_tpu.ops.fused import (
-        enumerate_entries_fused,
-        sort_and_range_entries,
-    )
-    from wgpu_3dgs_viewer_app_tpu.ops.sort import SENTINEL
-
-    comp = FULL
-    scene = make_random_scene(400, seed=3, extent=1.2, scale_range=(0.01, 0.05))
-    pod = {k: jnp.asarray(v) for k, v in pack_gaussians(scene, comp).items()}
-    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))
-    view, proj = jnp.asarray(cam.view()), jnp.asarray(cam.projection(1.0))
+    _, _, pre, _, _ = setup_scene(n=400, w=128, h=128, sh_degree=1)
     cfg = TileConfig(128, 128, tile=16, max_dup=8, model_bits=2)
     rank = 2
-    keys, p1, p2, p3 = enumerate_entries_fused(
-        pod, comp, cfg, view, proj, jnp.eye(4), sh_degree=1,
-        interpret=True, model_rank=rank,
-    )
+    keys, _, _, _ = enumerate_entries_from_pre(pre, cfg, model_rank=rank)
     k = np.asarray(keys)
-    live = k != SENTINEL
+    live = k != SENTINEL_KEY
     assert live.any()
     shift = cfg.v2_depth_bits + cfg.ALPHA_BITS
     got_ranks = (k[live] >> shift) & ((1 << cfg.model_bits) - 1)
-    assert (got_ranks == rank).all(), "model rank bits missing from fused keys"
+    assert (got_ranks == rank).all(), "model rank bits missing from keys"
 
-    # Full parity with the two-stage path at the same rank.
-    pre = preprocess(pod, comp, view, proj, jnp.eye(4), 128, 128, sh_degree=1)
-    a = build_sorted_entries(pre, cfg, impl="jnp", model_rank=rank)
-    b = sort_and_range_entries(keys, p1, p2, p3, cfg)
+    a = build_sorted_entries(pre, cfg, model_rank=rank)
+    b = build_sorted_entries(pre, cfg, model_rank=0)
     np.testing.assert_array_equal(np.asarray(a.tile_counts), np.asarray(b.tile_counts))
-    img_a = composite_tiles_jnp_v2(a, cfg)
-    img_b = composite_tiles_jnp_v2(b, cfg)
-    np.testing.assert_allclose(np.asarray(img_a), np.asarray(img_b), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(composite_tiles_jnp_v2(a, cfg)),
+                               np.asarray(composite_tiles_jnp_v2(b, cfg)), atol=1e-6)
 
 
 def test_tile_config_depth_bits_guard():
@@ -465,42 +253,3 @@ def test_tile_config_depth_bits_guard():
     bad = TileConfig(1920, 1080, tile=16, max_dup=8, model_bits=12)
     with pytest.raises(ValueError):
         _ = bad.v2_depth_bits
-
-
-def test_fused_presort_blocks_sorted_and_equivalent():
-    """presort=True: the fused kernel's output is block-sorted in the merge
-    sort's phase-1 layout (BLOCK runs alternating asc/desc) and carries
-    exactly the same entry multiset as the unsorted path."""
-    from wgpu_3dgs_viewer_app_tpu.ops.fused import enumerate_entries_fused
-    from wgpu_3dgs_viewer_app_tpu.ops.sort import BLOCK
-
-    comp = FULL
-    # 128-row pod (16384 splats) x max_dup 8 -> E = 16384*8 = 8 BLOCKs.
-    scene = make_random_scene(16384, seed=4, extent=1.2, scale_range=(0.01, 0.05))
-    pod = {k: jnp.asarray(v) for k, v in pack_gaussians(scene, comp).items()}
-    cam = CameraOrbitControl(target=(0, 0, 0), pos=(0, 0, -4))
-    view, proj = jnp.asarray(cam.view()), jnp.asarray(cam.projection(1.0))
-    cfg = TileConfig(128, 128, tile=16, max_dup=8)
-    args = (pod, comp, cfg, view, proj, jnp.eye(4))
-    plain = enumerate_entries_fused(*args, sh_degree=1, interpret=True)
-    pre = enumerate_entries_fused(*args, sh_degree=1, interpret=True,
-                                  presort=True)
-    kp = np.asarray(pre[0])
-    assert kp.shape[0] % BLOCK == 0
-    nb = kp.shape[0] // BLOCK
-    for b in range(nb):
-        blk = kp[b * BLOCK : (b + 1) * BLOCK].astype(np.int64)
-        d = np.diff(blk ^ 0x80000000 - 0)  # unsigned order == signed+bias
-        blk_u = blk  # uint comparison via int64 holds (values < 2^32)
-        if b % 2 == 0:
-            assert np.all(np.diff(blk_u) >= 0), f"block {b} not ascending"
-        else:
-            assert np.all(np.diff(blk_u) <= 0), f"block {b} not descending"
-    # Same (key, p1, p2, p3) multiset on live entries as the plain path.
-    def live_set(planes):
-        k = np.asarray(planes[0])
-        m = k != 0xFFFFFFFF
-        return sorted(zip(k[m].tolist(), np.asarray(planes[1])[m].tolist(),
-                          np.asarray(planes[2])[m].tolist(),
-                          np.asarray(planes[3])[m].tolist()))
-    assert live_set(plain) == live_set(pre)

@@ -26,7 +26,7 @@ def test_streaming_update_range_matches_bulk():
 
 def test_single_model_render_shapes():
     g = make_random_scene(256, seed=1, extent=1.0, scale_range=(0.03, 0.1))
-    v = Viewer(g, 96, 64, use_pallas=False)
+    v = Viewer(g, 96, 64)
     img = v.render(CAM)
     assert img.shape == (64, 96, 3)
     arr = np.asarray(img)
@@ -35,7 +35,7 @@ def test_single_model_render_shapes():
 
 def test_background_color():
     g = make_random_scene(8, seed=2, extent=0.1)
-    v = Viewer(g, 64, 64, background=(0.2, 0.3, 0.4), use_pallas=False)
+    v = Viewer(g, 64, 64, background=(0.2, 0.3, 0.4))
     arr = np.asarray(v.render(CAM))
     # corners should be background (tiny centered scene)
     np.testing.assert_allclose(arr[0, 0], [0.2, 0.3, 0.4], atol=1e-5)
@@ -43,7 +43,7 @@ def test_background_color():
 
 def test_multi_model_back_to_front():
     comp_scene = make_random_scene(128, seed=3, extent=0.3, scale_range=(0.05, 0.12))
-    v = MultiModelViewer(64, 64, use_pallas=False)
+    v = MultiModelViewer(64, 64)
     v.add_model("a", comp_scene)
     v.add_model("b", comp_scene)
     # Push model b behind model a.
@@ -61,7 +61,7 @@ def test_model_key_dedup_and_remove_last():
     import pytest
 
     g = make_random_scene(16, seed=4)
-    v = MultiModelViewer(32, 32, use_pallas=False)
+    v = MultiModelViewer(32, 32)
     v.add_model("m.ply", g)
     m2 = v.add_model("m.ply", g)
     assert m2.file_name == "m.ply (1)"  # ref dedup `name (n)` scene.rs:386-393
@@ -74,7 +74,7 @@ def test_show_unedited_bypasses_edits():
     from wgpu_3dgs_viewer_app_tpu.core import GaussianEditPod, EDIT_FLAG_ENABLED, EDIT_FLAG_HIDDEN
 
     g = make_random_scene(128, seed=5, extent=0.5, scale_range=(0.05, 0.1))
-    v = Viewer(g, 64, 64, use_pallas=False)
+    v = Viewer(g, 64, 64)
     base = np.asarray(v.render(CAM))
     # Hide everything via per-splat edits.
     m = v.models["model"]
@@ -88,7 +88,7 @@ def test_show_unedited_bypasses_edits():
 
 def test_resize_respecializes():
     g = make_random_scene(64, seed=6, extent=0.5)
-    v = Viewer(g, 64, 64, use_pallas=False)
+    v = Viewer(g, 64, 64)
     assert v.render(CAM).shape == (64, 64, 3)
     v.resize(96, 48)
     assert v.render(CAM).shape == (48, 96, 3)

@@ -1,12 +1,12 @@
-"""TPU-native 3D Gaussian Splatting viewer framework.
+"""3D Gaussian Splatting viewer framework on JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 LioQing/wgpu-3dgs-viewer-app (and the `wgpu-3dgs-viewer` engine crate it
 drives): streamed PLY loading with quantized compression, the
 preprocess -> depth sort -> alpha-composite splat pipeline, multi-model
 scenes, selection/edits, composite shape masks, measurement, and export —
-re-designed TPU-first (fused XLA preprocess, tile-binned sort, Pallas
-VMEM compositor, shard_map multi-chip scaling).
+re-designed as one JAX pipeline (fused XLA preprocess, tile-binned sort,
+a Pallas tile compositor, shard_map multi-device scaling).
 """
 
 from . import app, core, data, mask, ops, parallel, query, utils, viewer

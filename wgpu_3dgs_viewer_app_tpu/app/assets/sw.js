@@ -2,7 +2,7 @@
 // wasm bundle the same way, /root/reference/assets/sw.js). Frames and state
 // are live API calls and are never cached. Bypass with location.hash '#dev'
 // (reference index.html:184-191 semantics handled client-side).
-const CACHE = 'gs3d-tpu-v1';
+const CACHE = 'gs3d-v2';
 const SHELL = ['/', '/manifest.json'];
 
 self.addEventListener('install', (e) => {

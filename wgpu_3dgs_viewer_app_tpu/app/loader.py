@@ -7,7 +7,7 @@ Parity with reference:
   ~0.06 s frame budget and uploads each batch to the device
   (`src/tab/scene.rs:340-380`).
 
-Host-side threading is the TPU-VM equivalent of the reference's task spawn
+Host-side threading is the equivalent of the reference's task spawn
 (`src/util.rs:3-13`): a daemon thread parses chunks into a bounded queue; the
 frame loop drains within a time budget and pushes donated device updates.
 """

@@ -4,7 +4,7 @@ Parity with reference: eframe persists `State { compressions }` (+ dock
 layout) via serde; the loaded scene is `#[serde(skip)]`
 (`src/app.rs:16-17,311-314,331-340`). Here the same subset — compression
 settings and UI-ish preferences, never the loaded models — serializes to a
-JSON file (default `~/.config/gs3d_tpu/state.json`).
+JSON file (default `~/.config/gs3d/state.json`).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..core.transform import GaussianDisplayMode, GaussianShDegree
 from ..data.compression import Compressions, Cov3dCompression, ShCompression
 
 DEFAULT_PATH = Path(
-    os.environ.get("GS3D_TPU_STATE", "~/.config/gs3d_tpu/state.json")
+    os.environ.get("GS3D_STATE", "~/.config/gs3d/state.json")
 ).expanduser()
 
 

@@ -181,18 +181,18 @@ class GaussianSplattingSession:
         width: int = 1280,
         height: int = 720,
         compressions: Compressions = Compressions(),
-        use_pallas: Optional[bool] = None,
+        impl: Optional[str] = None,
         tile: int = 32,
         max_dup: int = 4,
     ):
         self.camera = Camera.default()
         self.compressions = compressions
         # Product default (32, 4) == the headline bench config; the dup=4
-        # truncation error bound is measured in tests/test_image_tpu.py::
-        # test_max_dup_truncation_bound_at_bench_scale (mean 5.0e-2,
-        # p99.9 0.55 vs dup=16). --max-dup 8/16 are the quality presets.
+        # truncation error bound vs dup=16 is pinned by
+        # tests/test_image_gpu.py::test_max_dup_truncation_bound_at_bench_scale.
+        # --max-dup 8/16 are the quality presets.
         self.viewer = MultiModelViewer(width, height, comp=compressions,
-                                       use_pallas=use_pallas, tile=tile,
+                                       impl=impl, tile=tile,
                                        max_dup=max_dup)
         self.selected_key: Optional[str] = None
         self.gaussian_transform = GaussianTransform()
@@ -349,27 +349,7 @@ class GaussianSplattingSession:
         gt = self.gaussian_transform
         # sh_degree=0: queries consume geometry (screen means, conic, depth,
         # alpha, validity) — never colors — so the SH->RGB evaluation (the
-        # bulk of a degree-3 preprocess) is skipped. Round-1 VERDICT weak #6:
-        # gesture frames paid a second FULL preprocess.
-        if self.viewer.use_pallas:
-            # One fused Pallas kernel (ops/fused.preprocess_geometry_fused)
-            # instead of the fragmented XLA preprocess.
-            from ..ops.fused import preprocess_geometry_fused
-
-            return preprocess_geometry_fused(
-                m.buffers.pod,
-                self.compressions,
-                self.viewer._view,
-                self.viewer._proj,
-                jnp.asarray(m.transform.matrix()),
-                self.viewer.cfg.width,
-                self.viewer.cfg.height,
-                size=jnp.float32(gt.size),
-                display_mode=int(gt.display_mode),
-                mask_bits=m.buffers.mask,
-                edit=(m.buffers.edit_flags, m.buffers.edit_rgb,
-                      m.buffers.edit_params),
-            )
+        # bulk of a degree-3 preprocess) is skipped.
         return preprocess(
             m.buffers.pod,
             self.compressions,

@@ -10,12 +10,10 @@ Conventions (this framework):
 - pixel coords: x right, y DOWN (top-left origin), so the y row of the
   projection Jacobian is negated.
 
-TPU note: every matrix product here is SCALAR-EXPANDED into (N,) component
-arithmetic. Batched (N, 3, 3)/(N, 2, 3) matmuls are pathological on TPU —
-XLA pads the tiny minor dims to full (sublane, 128-lane) tiles, a measured
-~43-57x HBM blowup at N = 6M (11.4 GB for one (6M,3,3) temp). Component form
-keeps everything in flat (N,) arrays the VPU streams at full f32 precision
-(no MXU bf16 rounding either).
+Every matrix product here is SCALAR-EXPANDED into (N,) component
+arithmetic: batched (N, 3, 3)/(N, 2, 3) matmuls would pad their tiny minor
+dims, while flat (N,) arrays stream through elementwise fusions at full
+f32 precision (no reduced-precision matrix units involved).
 """
 
 from __future__ import annotations
@@ -70,8 +68,7 @@ def transform_cov6_t(cov6c: tuple, m: jnp.ndarray) -> tuple:
     """Congruence transform Sigma' = M Sigma M^T for a (3, 3) scalar matrix M.
 
     cov6c: six (N,) uniques (xx, xy, xz, yy, yz, zz); returns the same tuple
-    form. Tuples-of-(N,) stay un-tiled on TPU; an (N, 6) array materializes
-    sublane-padded between fusion boundaries.
+    form: tuples of flat (N,) arrays, no (N, 6) array between fusions.
     """
     xx, xy, xz, yy, yz, zz = cov6c
     s = ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))

@@ -1,7 +1,7 @@
 """Pure-u32 IEEE f16 codec.
 
 No 16-bit dtypes anywhere on device: u16 converts deadlock the XLA CPU
-runtime in this environment, Mosaic prefers 32-bit lanes, and packing two
+runtime in this environment, kernels prefer 32-bit words, and packing two
 halves per u32 word halves sort-payload counts (ops/binning.py). Subnormals
 flush to zero; overflow clamps to f16 max; round-half-up.
 """

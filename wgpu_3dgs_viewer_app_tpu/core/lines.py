@@ -17,7 +17,8 @@ import jax.numpy as jnp
 def project_points(pts, view, proj, width, height):
     """(M, 3) world -> ((M, 2) pixel, (M,) clip-w depth, (M,) in-front)."""
     ones = jnp.ones((pts.shape[0], 1), jnp.float32)
-    clip = jnp.concatenate([pts, ones], axis=1) @ (proj @ view).T
+    clip = jnp.matmul(jnp.concatenate([pts, ones], axis=1),
+                      jnp.matmul(proj, view, precision=jax.lax.Precision.HIGHEST).T, precision=jax.lax.Precision.HIGHEST)
     w = clip[:, 3:4]
     in_front = w[:, 0] > 1e-6
     ndc = clip[:, :3] / jnp.where(jnp.abs(w) < 1e-9, 1e-9, w)

@@ -4,7 +4,7 @@ The engine crate evaluates SH->RGB in its WGSL preprocess shader (reference
 pipeline at `src/tab/scene.rs:856-863`; crate-internal). This is the standard
 real-SH basis used by Inria 3DGS PLYs (f_dc + 45 f_rest coefficients).
 
-TPU note: evaluated as a (N, 15) x basis contraction in f32 on the VPU; the
+Evaluated as a (N, 15) x basis contraction in f32 elementwise math; the
 degree is a static argument so XLA compiles a minimal kernel per degree.
 """
 
@@ -109,8 +109,8 @@ N_COEFFS_FOR_DEGREE = {0: 0, 1: 3, 2: 8, 3: 15}
 def sh_basis_terms(x: jnp.ndarray, y: jnp.ndarray, z: jnp.ndarray, degree: int) -> list:
     """Rest-coefficient basis values as a list of (N,) arrays (len = coeffs
     for `degree`). Component form: no (N, 15) materialization — each term
-    stays a flat (N,) array XLA fuses into the consumer (TPU tiny-minor-dim
-    arrays tile-pad badly; see core/covariance.py note)."""
+    stays a flat (N,) array XLA fuses into the consumer (see the
+    core/covariance.py note)."""
     terms = []
     if degree >= 1:
         terms += [-SH_C1 * y, SH_C1 * z, -SH_C1 * x]

@@ -8,15 +8,14 @@ Parity with reference:
   compressed per config (`src/tab/scene.rs:907-1006`).
 - Defaults: SH Norm8 + Cov3d Half (`src/app.rs:398-417`).
 
-TPU-native design: the Rust crate monomorphizes 8 pod struct layouts at
+Design: the Rust crate monomorphizes 8 pod struct layouts at
 compile time. Here a config is *data* — per-field dtype policy on a pytree of
 device arrays. jit re-specializes the render function per dtype combination,
 which is the XLA equivalent of monomorphization, with zero macro machinery.
 
-Device layout per model (struct of arrays, TPU ROW LAYOUT — the splat axis
-is split (R, 128) with N padded to a lane multiple, so every per-splat field
-plane is a stack of full (sublane, lane) tiles: no sublane padding for small
-leading dims, natural (Rb, 128) blocks for Pallas kernels, and no 16-bit or
+Device layout per model (struct of arrays, ROW LAYOUT — the splat axis
+is split (R, 128) with N padded to a multiple of 128, which is a plain
+reshape of the flat splat axis; no 16-bit or
 8-bit dtypes on device (f16/u8 data rides in u32 words, decoded with pure
 integer math — core f16 codec in ops/binning.py)):
   pos      (3, R, 128) f32
@@ -147,7 +146,7 @@ def flat_pod_to_words(pod: dict, comp: Compressions) -> dict:
 
 
 def pod_rows(flat: dict, comp: Compressions, capacity: int | None = None) -> dict:
-    """Flat raw pod -> TPU row layout (see module docstring).
+    """Flat raw pod -> row layout (see module docstring).
 
     Pads the splat axis to `capacity` (rounded up to a lane multiple) with
     zeros — zero color0 means alpha 0, so padded splats never render.
@@ -191,7 +190,7 @@ def pack_gaussians(
     When the gsnative C++ codec is built (native/gsnative.cpp) the fused
     multithreaded native path is used; `use_native=False` forces numpy.
 
-    layout="rows" (default) returns the TPU row layout; layout="flat" the
+    layout="rows" (default) returns the row layout; layout="flat" the
     intermediate flat layout (streaming-chunk path).
     """
     flat = _pack_gaussians_flat(g, comp, use_native)
@@ -259,7 +258,7 @@ def unpack_sh(pod: dict, comp: Compressions) -> jnp.ndarray:
 def make_sh_coeff_fn(pod: dict, comp: Compressions):
     """Per-coefficient dequantizer: (k, c) -> (N_pad,) f32 column over the
     rows/words layout (module docstring). Avoids materializing the
-    (N, 15, 3) tensor — see core/covariance.py TPU padding note."""
+    (N, 15, 3) tensor — see the core/covariance.py note."""
     from ..core.f16 import f16_bits_to_f32
 
     if comp.sh == ShCompression.REMOVE:

@@ -7,7 +7,7 @@ Parity with reference:
 - `Gaussian` / `Gaussians { gaussians }` CPU representation
   (`src/app.rs:512,1011,1029-1031`).
 
-TPU-native design: instead of an array-of-structs `Vec<Gaussian>`, splats are
+Design: instead of an array-of-structs `Vec<Gaussian>`, splats are
 held as a struct of numpy arrays (SoA) — the layout device upload wants, and
 what jnp kernels consume directly.
 """

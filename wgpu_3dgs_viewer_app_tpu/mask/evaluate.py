@@ -6,12 +6,9 @@ mask_buffer, model_transform, gaussians)` (reference
 the mask bit buffer, which then gates splats out of the draw every frame
 (mask bound into preprocess, `src/tab/scene.rs:1851`).
 
-TPU design: the whole tree folds into one fused XLA elementwise expression
+Design: the whole tree folds into one fused XLA elementwise expression
 over COMPONENT-FORM positions — three flat (N,) planes, never an (N, 3)
-array. (N, k<128) arrays lane-pad up to 42x between fusion boundaries and
-`(N,3) @ (3,3)` matmuls hit the batched-tiny-matmul tiling pathology
-(PERF_NOTES.md "Measured facts"); the component form measured 25 ms -> ~1 ms
-for a 3-shape tree over 6M splats on v5e. Each Shape leaf is 9 fma + 3 sub +
+array and no `(N,3) @ (3,3)` tiny matmuls. Each Shape leaf is 9 fma + 3 sub +
 a compare reduction; each tree node one boolean op. `MaskOpTree::Reset`
 (SURVEY §2.2) sets all bits.
 """

@@ -4,7 +4,7 @@ Parity with the crate's `MaskGizmo` (reference `src/tab/scene.rs:2144-2162,
 2229-2247,2286-2292`): per-shape wireframes in the shape's color, drawn over
 the scene (`render_box_with_pass` / `render_ellipsoid_with_pass`).
 
-TPU design: gizmo edges become line-segment lists transformed on host and
+Design: gizmo edges become line-segment lists transformed on host and
 rasterized by the same vectorized jnp line pass as the measurement overlay.
 """
 

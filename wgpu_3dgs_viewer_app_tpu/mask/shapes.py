@@ -70,8 +70,7 @@ def shape_contains_xyz(pod: MaskOpShapePod, x, y, z) -> jnp.ndarray:
     """Component-form containment: three flat (N,) world planes -> (N,) bool.
 
     All math stays on flat (N,) arrays — 9 fma + 3 sub per shape, fused by
-    XLA with the surrounding set-op tree. Never build an (N, 3) array on
-    device (lane-padding + tiny-matmul tiling pathologies, PERF_NOTES.md)."""
+    XLA with the surrounding set-op tree; no (N, 3) array, no tiny matmuls."""
     il = np.asarray(pod.inv_lin, np.float32)
     px, py, pz = (float(v) for v in np.asarray(pod.pos, np.float32))
     dx, dy, dz = x - px, y - py, z - pz

@@ -4,7 +4,7 @@
 // compression in Rust inside the wgpu-3dgs-viewer crate (PLY iterator at
 // app call site src/app.rs:1062-1066; pod compression on
 // `gaussians_buffer.update_range`, src/tab/scene.rs:2076-2084). This is the
-// TPU-host equivalent: a C shared library that fuses
+// host-side equivalent: a C shared library that fuses
 //   raw 62-f32 PLY records -> {pos f32x3, color0 u8x4, sh (f32|f16|u8norm),
 //                              cov3d (f32|f16)}
 // in one multithreaded pass, feeding device uploads without intermediate

@@ -1,3 +1,4 @@
+from .backend import render_impl
 from .binning import (
     EntryPlanes,
     SortedEntries,
@@ -7,19 +8,14 @@ from .binning import (
     build_sorted_entries,
     build_tile_lists,
     enumerate_entries_from_pre,
-)
-from .fused import (
-    build_sorted_entries_fused,
-    enumerate_entries_fused,
     sort_and_range_entries,
+    sort_entries,
 )
-from .sort import block_sort, merge_sort, sort_entries, sort_entries_interleaved
 from .composite import (
-    composite_tiles,
+    composite_tiles_gpu,
     composite_tiles_jnp,
     composite_tiles_jnp_v2,
-    composite_tiles_pallas,
-    composite_tiles_pallas_v2,
+    composite_tiles_v2,
     over_background,
 )
 from .preprocess import PreprocessOut, preprocess
@@ -27,25 +23,20 @@ from .rasterize_ref import rasterize_reference
 
 __all__ = [
     "EntryPlanes",
-    "block_sort",
-    "merge_sort",
+    "render_impl",
     "sort_entries",
-    "sort_entries_interleaved",
     "enumerate_entries_from_pre",
-    "enumerate_entries_fused",
     "sort_and_range_entries",
     "SortedEntries",
     "build_sorted_entries",
-    "build_sorted_entries_fused",
+    "composite_tiles_gpu",
     "composite_tiles_jnp_v2",
-    "composite_tiles_pallas_v2",
+    "composite_tiles_v2",
     "TileConfig",
     "TileLists",
     "build_entry_planes",
     "build_tile_lists",
-    "composite_tiles",
     "composite_tiles_jnp",
-    "composite_tiles_pallas",
     "over_background",
     "PreprocessOut",
     "preprocess",

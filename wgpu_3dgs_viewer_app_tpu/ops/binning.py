@@ -1,9 +1,10 @@
-"""Tile binning + depth sort: the TPU equivalent of the crate's `RadixSorter`
+"""Tile binning + depth sort: the JAX equivalent of the crate's `RadixSorter`
 (driven at reference `src/tab/scene.rs:865-869`) fused with tile-list
 construction for the compositor.
 
-GPU 3DGS sorts (depth, splat) pairs and lets hardware blending handle pixel
-order. A TPU has no ROP units, so we take the tile-binned design: each
+The reference sorts (depth, splat) pairs and lets hardware blending handle
+pixel order. JAX reaches no rasterizer or ROPs, so we take the tile-binned
+design of the 3DGS CUDA rasterizer (Kerbl et al. 2023): each
 surviving splat is duplicated into every screen tile its 3-sigma rect touches
 (static duplication factor D — XLA static shapes; SURVEY §7 hard-part (3)),
 keyed by
@@ -11,7 +12,7 @@ keyed by
     key(u32) = tile_id << DEPTH_BITS | monotonic_f32_bits(depth) >> (32 - DEPTH_BITS)
 
 One ascending `lax.sort` then yields, per tile, a front-to-back splat run;
-`searchsorted` recovers the per-tile [start, count) ranges (the TPU analog of
+`searchsorted` recovers the per-tile [start, count) ranges (the analog of
 the crate's dispatch-indirect args buffer, `src/tab/scene.rs:867-868`).
 
 IEEE-754 trick: positive f32 bit patterns are monotonic in value, so the top
@@ -50,9 +51,9 @@ class TileConfig:
     # rect exceeds D get their trailing cells dropped (visible as tile-grid
     # seams), so choose D >= (ceil(2*r_max/tile)+1)^2 for the expected max
     # splat radius: D=16 is safe for r <= 1.5 tiles; D=4 is exact only for
-    # r <= tile/2. Sort cost scales with N*D (PERF_NOTES.md).
+    # r <= tile/2. Sort cost scales with N*D.
     max_dup: int = 8
-    # Compacted slot assignment (VERDICT r4: "kill the sentinel slack"):
+    # Compacted slot assignment (removes sentinel slack):
     # with dup_scan = K > max_dup, slot d holds the d-th candidate cell that
     # PASSES the exact ellipse-tile test among the K center-out candidates —
     # instead of the d-th candidate unconditionally. Slots then hold ~0
@@ -62,7 +63,7 @@ class TileConfig:
     # reaching passing cells anywhere in the first 12 candidates (the
     # uncompacted path never looks past candidate 3). 0 = off (slot d =
     # candidate d, the uncompacted layout). Costs K-D extra ellipse tests
-    # per splat in the enumeration kernel (~25 VPU ops each).
+    # per splat in the enumeration (~25 elementwise ops each).
     dup_scan: int = 0
 
     @property
@@ -87,11 +88,10 @@ class TileConfig:
         return 32 - self.tile_bits
 
     # v2 key layout: tile | model_rank | depth | alpha8. Stashing the
-    # per-entry opacity in the key's low byte removes one u32 sort payload
-    # (~24 ms at E=24M on v5e), and the sorted keys flow to the compositor
-    # anyway. Sorting by alpha within equal (tile, depth) buckets is
-    # harmless: those entries are depth ties whose blend order is
-    # unspecified after quantization. model_bits > 0 enables the fused
+    # per-entry opacity in the key's low byte removes one u32 sort payload,
+    # and the sorted keys flow to the compositor anyway. Sorting by alpha
+    # within equal (tile, depth) buckets is harmless: those entries are
+    # depth ties whose blend order is unspecified after quantization. model_bits > 0 enables the fused
     # multi-model pass: per tile, entries group by model (nearest rank
     # first — the compositor is front-to-back, mirroring the reference's
     # back-to-front per-model draws, `src/tab/scene.rs:2299-2315`), sorted
@@ -237,8 +237,7 @@ def build_tile_lists(pre: PreprocessOut, cfg: TileConfig) -> TileLists:
     )
 
 
-# Entries per packed row == VPU lane width. Each chunk the compositor
-# consumes is exactly one row of every field plane.
+# Entries per packed row of the entry planes.
 ROW = 128
 
 # Field-plane order in the packed entry tensor.
@@ -249,16 +248,14 @@ N_PLANES = len(PLANE_FIELDS)
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class EntryPlanes:
-    """TPU-native sorted entry storage.
+    """v1 sorted entry storage (the test reference layout).
 
-    Mosaic wants HBM slices 128-lane aligned, so entries are packed 128 per
-    row with each splat field on its own plane:
+    Entries are packed 128 per row with each splat field on its own plane:
 
         ent (9, R, 128) f32 — planes mx, my, A, B, C, alpha, r, g, b
 
     and every tile's run starts on a row boundary (runs padded to a multiple
-    of 128 with zero-alpha entries). A compositor chunk = one (9, 1, 128)
-    row DMA, always aligned.
+    of 128 with zero-alpha entries).
     """
 
     ent: jnp.ndarray          # (9, R, 128) f32
@@ -306,8 +303,6 @@ def build_entry_planes(pre: PreprocessOut, lists: TileLists, cfg: TileConfig) ->
     src_slot = jnp.clip(src_slot.reshape(-1), 0, e - 1)
     src = jnp.where(live, lists.sorted_idx[src_slot], 0)
 
-    # Per-field 1D gathers: multi-column gathers force lane-padded layouts on
-    # TPU (a (E, 9) gather materializes with ~57x padding); 1D gathers don't.
     alpha_g = jnp.where(live, pre.alpha[src], 0.0)  # dead slots: exact no-ops
     planes = [
         pre.mean_x[src],
@@ -331,14 +326,11 @@ def build_entry_planes(pre: PreprocessOut, lists: TileLists, cfg: TileConfig) ->
 # ---------------------------------------------------------------------------
 # v2: payload-carry binning — no post-sort gathers, no alignment pass.
 #
-# Measured on v5e at E = 24M: one XLA gather is ~7.6 ns/element (183 ms for a
-# single 24M gather), so the v1 gather-based plane build costs ~1-2 s at 6M
-# splats. Carrying data *through* `lax.sort` costs ~24 ms per u32 payload at
-# 24M. v2 therefore packs the per-entry fields into the key low byte (alpha)
-# plus THREE u32 payloads, sorts once, and hands the sorted planes (key
-# included — it rides the sort for free) straight to the compositor, which
-# masks the unaligned head/tail of each tile's run instead of re-aligning
-# storage.
+# v2 packs the per-entry fields into the key low byte (alpha) plus THREE
+# u32 payloads carried through the sort (no post-sort gather), sorts once,
+# and hands the sorted planes (key included — it rides the sort for free)
+# straight to the compositor, which reads each tile's unaligned run in place
+# instead of re-aligning storage.
 #
 # Plane layout (planes[:, i, :]):
 #   0: sort key        = tile | depth_q | alpha_u8  (depth_q: log-depth
@@ -363,8 +355,8 @@ MEAN_FIX_BIAS = 128.0
 class SortedEntries:
     """Sorted packed entries + per-tile ranges (v2 layout).
 
-    planes (R, 4, 128) u32 — per entry (row-interleaved so one compositor
-    chunk is a single contiguous (1, 4, 128) DMA); plane 0 is the sort key
+    planes (R, 4, 128) u32 — per entry (row-interleaved: an entry's four
+    words lie in one 2 KB row); plane 0 is the sort key
     itself (tile | depth_q | alpha_u8), planes 1-3 the payloads — see the
     layout comment above. Runs are NOT row-aligned: tile t occupies entries
     [starts[t], starts[t]+counts[t]) of the flat sorted order; the compositor
@@ -410,7 +402,7 @@ def _enum_cell(d: int, tx0, rw, ty0, rh):
 def _tight_cull_params(r_signed, p2s, p3s):
     """Per-splat tight-culling precursors, derived from the signed live
     radius (negative/zero = invalid) and the PACKED conic planes, so every
-    enumeration path (jnp / Pallas / fused) culls with the same f16-rounded
+    enumeration culls with the same f16-rounded
     conic the compositor evaluates (culling is then exact w.r.t. the
     rendered contribution threshold, not the pre-quantization one).
 
@@ -439,10 +431,10 @@ def _tight_cull_params(r_signed, p2s, p3s):
     # the circle (c * lam_min / det = c / lam_max <= 1).
     # NB: for the few splats whose mean/extent lands within cross-backend
     # float wobble of a tile boundary, the rect (and with it the center-out
-    # max_dup slot order) can differ between the Mosaic and XLA paths —
-    # quantizing rx/x cannot reduce that flip probability (it is
-    # wobble/boundary-spacing for any grid); the hardware image tests bound
-    # the effect statistically instead (tests/test_image_tpu.py).
+    # max_dup slot order) can differ between backends — quantizing rx/x
+    # cannot reduce that flip probability (it is wobble/boundary-spacing
+    # for any grid); the GPU image tests bound the effect statistically
+    # instead (tests/test_image_gpu.py).
     rx = jnp.minimum(jnp.sqrt(jnp.maximum(c, 0.0)) * scale, r)
     ry = jnp.minimum(jnp.sqrt(jnp.maximum(a, 0.0)) * scale, r)
     inv_a = 1.0 / jnp.maximum(a, 1e-12)
@@ -502,7 +494,6 @@ def _cell_entry(live, etx, ety, x, y, key_lo, p1_base, cfg: TileConfig):
     )
     # Mean relative to the entry's own tile origin, 1/16-px fixed point —
     # uniform precision, unlike f16 whose ulp grows away from the origin.
-    # f32 -> i32 -> u32: Mosaic has no direct f32 -> u32 convert.
     mxq = (
         jnp.clip((x - ox + MEAN_FIX_BIAS) * MEAN_FIX_SCALE + 0.5, 0.0, 4095.0)
         .astype(jnp.int32)
@@ -592,11 +583,7 @@ def _enumerate_entries_jnp(x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg: TileC
     p1_2d = jnp.stack(p1s, axis=0)
     p2_2d = jnp.broadcast_to(p2s[None, :], (dmax, n))
     p3_2d = jnp.broadcast_to(p3s[None, :], (dmax, n))
-    # Materialize exactly these four (D, N) arrays, then flatten each ONCE.
-    # A (D, N) array is tiled (sublane, lane) on TPU, so every 2D->1D reshape
-    # is a physical relayout copy XLA runs as a ~2 ms while-loop at E=24M;
-    # without the barrier, fusion boundaries scatter ~17 such relayouts
-    # through this function (measured: ~32 ms/frame — see PERF_NOTES.md).
+    # Materialize exactly these four (D, N) arrays, then flatten each once.
     keys2d, p1_2d, p2_2d, p3_2d = jax.lax.optimization_barrier(
         (keys2d, p1_2d, p2_2d, p3_2d)
     )
@@ -608,83 +595,12 @@ def _enumerate_entries_jnp(x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg: TileC
     )
 
 
-def _enum_pack_kernel(x_ref, y_ref, r_ref, klo_ref, p1b_ref, p2_ref, p3_ref,
-                      keys_ref, p1_ref, p2o_ref, p3o_ref, *, cfg: TileConfig):
-    """Pallas enumeration: one grid step handles a (Rb, 128) splat block and
-    writes its (Rb, D, 128) entry planes — entry order (row, d, lane), chosen
-    so the 3D->1D flatten is layout-preserving (no relayout copy before the
-    sort; the (D, N)-major jnp order costs 4 while-loop relayouts)."""
-    x, y = x_ref[...], y_ref[...]
-    key_lo, p1_base = klo_ref[...], p1b_ref[...]
-    cull, rx, ry = _tight_cull_params(r_ref[...], p2_ref[...], p3_ref[...])
-    tx0, rw, ty0, rh, n_touched = _splat_rect(x, y, rx, ry, cfg)
-    planes = _entry_planes_all(
-        x, y, cull, key_lo, p1_base, tx0, rw, ty0, rh, n_touched, cfg
-    )
-    for d, (key_d, p1_d) in enumerate(planes):  # static unroll
-        keys_ref[:, d, :] = key_d
-        p1_ref[:, d, :] = p1_d
-        p2o_ref[:, d, :] = p2_ref[...]
-        p3o_ref[:, d, :] = p3_ref[...]
-
-
-def _enumerate_entries_pallas(
-    x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg: TileConfig, interpret: bool = False
-):
-    from jax.experimental import pallas as pl
-
-    n = x.shape[0]
-    rb = 256
-    pad = (-n) % (ROW * rb)
-    if pad:
-        # Padded splats carry r_signed = 0 -> cut2 = -1 -> never live.
-        x, y, r_signed, key_lo, p1_base, p2s, p3s = (
-            jnp.concatenate([a, jnp.zeros(pad, a.dtype)])
-            for a in (x, y, r_signed, key_lo, p1_base, p2s, p3s)
-        )
-    n_pad = n + pad
-    rows_total = n_pad // ROW
-    grid = (rows_total // rb,)
-    d = cfg.max_dup
-
-    def in_spec():
-        return pl.BlockSpec((rb, ROW), lambda i: (i, 0))
-
-    out_spec = pl.BlockSpec((rb, d, ROW), lambda i: (i, 0, 0))
-    out_shape = jax.ShapeDtypeStruct((rows_total, d, ROW), jnp.uint32)
-    ins = [a.reshape(rows_total, ROW) for a in (x, y, r_signed, key_lo, p1_base, p2s, p3s)]
-    kernel = functools.partial(_enum_pack_kernel, cfg=cfg)
-    keys, p1, p2, p3 = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[in_spec() for _ in ins],
-        out_specs=[out_spec] * 4,
-        out_shape=[out_shape] * 4,
-        interpret=interpret,
-    )(*ins)
-    return tuple(a.reshape(-1) for a in (keys, p1, p2, p3))
-
-
-def _enumerate_entries(x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg, impl):
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if impl == "jnp":
-        return _enumerate_entries_jnp(x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg)
-    return _enumerate_entries_pallas(
-        x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg, interpret=impl == "interpret"
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "impl"))
-def enumerate_entries_from_pre(
-    pre: PreprocessOut, cfg: TileConfig, impl: str = "auto", model_rank=0
-):
+@functools.partial(jax.jit, static_argnames=("cfg",))
+def enumerate_entries_from_pre(pre: PreprocessOut, cfg: TileConfig, model_rank=0):
     """Duplicate + pack: unsorted flat (keys, p1, p2, p3) entry planes.
 
-    `impl` selects the enumeration stage: "pallas" (TPU kernel), "jnp"
-    (portable reference), "interpret" (Pallas interpret mode, for tests),
-    "auto" (pallas on TPU else jnp). `model_rank` keys the fused
-    multi-model pass (cfg.model_bits > 0, nearest model = 0).
+    `model_rank` keys the fused multi-model pass (cfg.model_bits > 0,
+    nearest model = 0).
     """
     x, y = pre.mean_x, pre.mean_y
 
@@ -706,29 +622,26 @@ def enumerate_entries_from_pre(
     r_signed = jnp.where(pre.valid, pre.radius, -1.0)
 
     # --- per-entry enumeration + packing (N*D,) ---
-    return _enumerate_entries(
-        x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg, impl
-    )
+    return _enumerate_entries_jnp(x, y, r_signed, key_lo, p1_base, p2s, p3s, cfg)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "impl"))
+def sort_entries(keys, p1, p2, p3):
+    """One ascending key sort carrying the three payload planes."""
+    return jax.lax.sort((keys, p1, p2, p3), num_keys=1, is_stable=False)
+
+
+def sort_and_range_entries(keys, p1, p2, p3, cfg: TileConfig) -> SortedEntries:
+    """Sort flat entry planes and slice the per-tile ranges."""
+    return _sorted_entries_from_sorted(*sort_entries(keys, p1, p2, p3), cfg)
+
+
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def build_sorted_entries(
-    pre: PreprocessOut, cfg: TileConfig, impl: str = "auto", model_rank=0
+    pre: PreprocessOut, cfg: TileConfig, model_rank=0
 ) -> SortedEntries:
-    """Duplicate -> pack -> sort-with-payloads -> per-tile ranges.
-
-    `impl` routes BOTH the enumeration and the sort: "jnp" forces the
-    portable XLA path even when the default backend is a TPU (needed when
-    compiling for an explicit CPU mesh, e.g. the multichip dryrun)."""
-    keys, p1, p2, p3 = enumerate_entries_from_pre(pre, cfg, impl, model_rank)
-
-    from .sort import sort_entries_interleaved
-
-    sort_impl = {"jnp": "xla", "interpret": "interpret"}.get(impl, "auto")
-    sk, inter, s1, s2, s3 = sort_entries_interleaved(keys, p1, p2, p3, impl=sort_impl)
-    if inter is not None:
-        return _sorted_entries_from_interleaved(sk, inter, cfg)
-    return _sorted_entries_from_sorted(sk, s1, s2, s3, cfg)
+    """Duplicate -> pack -> sort-with-payloads -> per-tile ranges."""
+    keys, p1, p2, p3 = enumerate_entries_from_pre(pre, cfg, model_rank)
+    return sort_and_range_entries(keys, p1, p2, p3, cfg)
 
 
 def _tile_edges(sk, cfg: TileConfig):
@@ -737,19 +650,6 @@ def _tile_edges(sk, cfg: TileConfig):
         << jnp.uint32(cfg._tile_shift)
     )
     return jnp.searchsorted(sk, boundaries, side="left").astype(jnp.int32)
-
-
-def _sorted_entries_from_interleaved(sk, inter, cfg: TileConfig) -> SortedEntries:
-    """Tail for the direct-interleaved Pallas sort: the (R, 4, 128) planes
-    come straight from the final merge level (rows beyond the live prefix
-    are stale spill — never addressed by any tile range)."""
-    edges = _tile_edges(sk, cfg)
-    return SortedEntries(
-        planes=inter,
-        tile_starts=edges[:-1],
-        tile_counts=edges[1:] - edges[:-1],
-        n_valid=edges[cfg.n_tiles],
-    )
 
 
 def _sorted_entries_from_sorted(sk, s1, s2, s3, cfg: TileConfig) -> SortedEntries:
@@ -767,8 +667,8 @@ def _sorted_entries_from_sorted(sk, s1, s2, s3, cfg: TileConfig) -> SortedEntrie
             pl = jnp.concatenate([pl, jnp.zeros(pad, jnp.uint32)])
         return pl.reshape(-1, ROW)
 
-    # (R, 4, 128): one compositor chunk = one contiguous (1, 4, 128) DMA;
-    # plane 0 is the sorted key (alpha in its low byte).
+    # (R, 4, 128): an entry's four words lie in one row; plane 0 is the
+    # sorted key (alpha in its low byte).
     planes = jnp.stack([rows(sk), rows(s1), rows(s2), rows(s3)], axis=1)
     # Live entries all key below the first out-of-range tile boundary and
     # sentinels above it, so the last searchsorted edge IS the live count —

@@ -1,47 +1,45 @@
-"""Tile-local front-to-back alpha compositing — the TPU replacement for the
+"""Tile-local front-to-back alpha compositing — the replacement for the
 crate's `Renderer` draw-indirect rasterization + hardware blending
 (reference `src/tab/scene.rs:2306-2313`, 12-buffer contract at
 `src/tab/scene.rs:1854-1867`).
 
-Design (BASELINE.json north star: "tile-local front-to-back compositing
-kernel accumulating in VMEM"):
+The screen is cut into `tile x tile` pixel tiles; binning (ops/binning.py)
+hands each tile a depth-sorted run of entries. Every pixel blends its
+tile's run front to back, and a tile stops once every one of its pixels is
+saturated (transmittance < T_EPS) — fragment-level early termination.
 
-- Screen is cut into `tile x tile` pixel tiles; binning (ops/binning.py)
-  provides per-tile front-to-back splat runs in a 128-aligned field-plane
-  layout (`EntryPlanes`): one compositor chunk == one (9, 1, 128) row DMA.
-- Compute shape is (P pixels on sublanes, 128 entries on lanes). Per chunk
-  the (P, 128) alpha matrix is built on the VPU, then per-entry transmittance
-  is recovered with a *parallel* Hillis-Steele cumulative product along the
-  lane axis (order-independent-transmittance formulation — compositing
-  becomes weighted reductions instead of a serial pixel blend; cf. PAPERS.md
-  "Order-independent Transmittance").
-- Early exit: once every pixel in the tile is saturated
-  (max transmittance < 1/255) remaining chunks are skipped — the TPU analog
-  of fragment-level early termination in GPU 3DGS.
-
-Two implementations with identical math:
-  composite_tiles_jnp    — pure jnp (vmap over tiles); runs anywhere; the
-                           verifiable reference and CPU-backend path.
-  composite_tiles_pallas — Pallas TPU kernel: per-tile grid, scalar-prefetched
-                           tile ranges, double-buffered HBM->VMEM row DMA,
-                           VMEM accumulators.
+Implementations with identical math:
+  composite_tiles_jnp    — v1 field-plane layout, jnp; a test reference.
+  composite_tiles_jnp_v2 — v2 packed layout (`SortedEntries`), jnp; the CPU
+                           path and the reference for the GPU kernel.
+  composite_tiles_gpu    — v2 layout, Pallas kernel through Triton: one
+                           program per tile, as in the 3DGS CUDA rasterizer
+                           (Kerbl et al. 2023).
+`composite_tiles_v2` picks between the last two by implementation name
+(ops/backend.render_impl).
 """
 
 from __future__ import annotations
 
 import functools
-import os as _os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .binning import ALPHA_MAX, ROW, EntryPlanes, TileConfig
-
-# Bench A/B knob: GS_COMPOSITE_TRANSPOSED=0 falls back to the row-major
-# (pixels-on-sublanes) kernel orientation.
-TRANSPOSED_DEFAULT = _os.environ.get("GS_COMPOSITE_TRANSPOSED", "1") not in ("0", "false")
+from .binning import (
+    ALPHA_MAX,
+    MEAN_FIX_BIAS,
+    MEAN_FIX_SCALE,
+    N_PACKED_PLANES,
+    ROW,
+    EntryPlanes,
+    SortedEntries,
+    TileConfig,
+    _f16_bits_to_f32,
+    unpack2xf16,
+)
 
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1.0 / 255.0
@@ -72,36 +70,24 @@ def _chunk_alpha(chunk, px, py, flat_mode: bool):
     return a, r, g, b
 
 
-def _excl_cumprod_lanes(om: jnp.ndarray, use_roll: bool):
-    """Inclusive+exclusive cumulative product along the last (lane) axis.
-
-    Hillis-Steele doubling: log2(C) masked-multiply steps — a parallel scan
-    the VPU executes as cheap lane-rotates instead of a serial blend.
-    """
-    c = om.shape[-1]
-    if use_roll:
-        incl = om
-        # Narrow (1, C) mask row: the per-stage wrap guard compare happens
-        # once per lane, not per (pixel, lane).
-        col = jax.lax.broadcasted_iota(
-            jnp.int32, (1,) * (len(om.shape) - 1) + (c,), len(om.shape) - 1
-        )
-        shift = 1
-        while shift < c:
-            rolled = pltpu.roll(incl, shift, axis=len(om.shape) - 1)
-            rolled = jnp.where(col < shift, 1.0, rolled)
-            incl = incl * rolled
-            shift *= 2
-        rolled = pltpu.roll(incl, 1, axis=len(om.shape) - 1)
-        excl = jnp.where(col < 1, 1.0, rolled)
-    else:
-        incl = jnp.cumprod(om, axis=-1)
-        excl = jnp.concatenate([jnp.ones_like(om[..., :1]), incl[..., :-1]], axis=-1)
+def _excl_cumprod(om: jnp.ndarray):
+    """Inclusive and exclusive cumulative product along the last axis."""
+    incl = jnp.cumprod(om, axis=-1)
+    excl = jnp.concatenate([jnp.ones_like(om[..., :1]), incl[..., :-1]], axis=-1)
     return incl, excl
 
 
+def _tiles_to_image(tiles: jnp.ndarray, cfg: TileConfig) -> jnp.ndarray:
+    """(n_tiles, P, 4) per-tile pixels -> (H, W, 4) image."""
+    tile = cfg.tile
+    ntx, nty = cfg.tiles_x, cfg.tiles_y
+    img = tiles.reshape(nty, ntx, tile, tile, 4).transpose(0, 2, 1, 3, 4)
+    img = img.reshape(nty * tile, ntx * tile, 4)
+    return img[: cfg.height, : cfg.width]
+
+
 # ---------------------------------------------------------------------------
-# Portable jnp implementation
+# v1 layout, jnp
 # ---------------------------------------------------------------------------
 
 
@@ -114,7 +100,7 @@ def composite_tiles_jnp(
     """Returns (H, W, 4) f32: premultiplied rgb + coverage alpha."""
     tile = cfg.tile
     p = tile * tile
-    ntx, nty = cfg.tiles_x, cfg.tiles_y
+    ntx = cfg.tiles_x
     ent = planes.ent  # (9, R, 128)
 
     tile_ids = jnp.arange(cfg.n_tiles, dtype=jnp.int32)
@@ -135,7 +121,7 @@ def composite_tiles_jnp(
             c, t, rgb = state
             chunk = jax.lax.dynamic_slice(ent, (0, row_start + c, 0), (9, 1, ROW))
             a, r, g, b = _chunk_alpha(chunk, px, py, flat_mode)
-            incl, excl = _excl_cumprod_lanes(1.0 - a, use_roll=False)
+            incl, excl = _excl_cumprod(1.0 - a)
             w = t * excl * a  # (P, C)
             rgb = rgb + jnp.stack(
                 [jnp.sum(w * r, -1), jnp.sum(w * g, -1), jnp.sum(w * b, -1)], -1
@@ -150,145 +136,7 @@ def composite_tiles_jnp(
         return jnp.concatenate([rgb, 1.0 - t], axis=1)  # (P, 4)
 
     tiles = jax.vmap(one_tile)(planes.row_starts, planes.tile_counts, origin_x, origin_y)
-    img = tiles.reshape(nty, ntx, tile, tile, 4).transpose(0, 2, 1, 3, 4)
-    img = img.reshape(nty * tile, ntx * tile, 4)
-    return img[: cfg.height, : cfg.width]
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-
-def _composite_kernel(
-    row_starts_ref,
-    counts_ref,
-    ent_hbm,
-    out_ref,
-    *,
-    cfg: TileConfig,
-    flat_mode: bool,
-):
-    t = pl.program_id(0)
-    tile = cfg.tile
-    p = tile * tile
-    ntx = cfg.tiles_x
-    row_start = row_starts_ref[t]
-    count = counts_ref[t]
-    ox = (t % ntx) * tile
-    oy = (t // ntx) * tile
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    px = (ox + lane % tile).astype(jnp.float32) + 0.5  # (P, 1)
-    py = (oy + lane // tile).astype(jnp.float32) + 0.5
-
-    def scoped(ent_buf, t_buf, rgb_buf, sems):
-        t_buf[:] = jnp.ones((p, 1), jnp.float32)
-        rgb_buf[:] = jnp.zeros((p, 4), jnp.float32)
-        n_chunks = (count + ROW - 1) // ROW
-
-        def get_dma(slot, c):
-            return pltpu.make_async_copy(
-                ent_hbm.at[:, pl.ds(row_start + c, 1), :],
-                ent_buf.at[slot],
-                sems.at[slot],
-            )
-
-        @pl.when(n_chunks > 0)
-        def _():
-            get_dma(0, 0).start()
-
-        def cond(state):
-            c, _ = state
-            return (c < n_chunks) & (jnp.max(t_buf[:]) > T_EPS)
-
-        def body(state):
-            c, _ = state
-            slot = jax.lax.rem(c, 2)
-            nxt = jax.lax.rem(c + 1, 2)
-
-            @pl.when(c + 1 < n_chunks)
-            def _():
-                get_dma(nxt, c + 1).start()
-
-            get_dma(slot, c).wait()
-            chunk = ent_buf[slot]  # (9, 1, ROW)
-            a, r, g, b = _chunk_alpha(chunk, px, py, flat_mode)
-            incl, excl = _excl_cumprod_lanes(1.0 - a, use_roll=True)
-            tcur = t_buf[:, 0:1]
-            w = tcur * excl * a  # (P, C)
-            rgb_buf[:, 0:1] = rgb_buf[:, 0:1] + jnp.sum(w * r, -1, keepdims=True)
-            rgb_buf[:, 1:2] = rgb_buf[:, 1:2] + jnp.sum(w * g, -1, keepdims=True)
-            rgb_buf[:, 2:3] = rgb_buf[:, 2:3] + jnp.sum(w * b, -1, keepdims=True)
-            t_buf[:] = tcur * incl[:, ROW - 1 : ROW]
-            return c + 1, 0
-
-        c_final, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), 0))
-
-        # Early exit leaves the prefetched chunk-c_final DMA in flight with
-        # its semaphore pending; drain it or the next tile's wait on that
-        # slot pairs with the stale signal and reads garbage.
-        @pl.when(c_final < n_chunks)
-        def _():
-            get_dma(jax.lax.rem(c_final, 2), c_final).wait()
-
-        rgb_buf[:, 3:4] = 1.0 - t_buf[:]
-        # Output block is (4, P) lane-major (a (P, 4) block would get lane-
-        # padded 32x in HBM); one transpose per tile.
-        out_ref[0] = rgb_buf[:].T
-
-    pl.run_scoped(
-        scoped,
-        ent_buf=pltpu.VMEM((2, 9, 1, ROW), jnp.float32),
-        t_buf=pltpu.VMEM((p, 1), jnp.float32),
-        rgb_buf=pltpu.VMEM((p, 4), jnp.float32),
-        sems=pltpu.SemaphoreType.DMA((2,)),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "flat_mode", "interpret"))
-def composite_tiles_pallas(
-    planes: EntryPlanes,
-    cfg: TileConfig,
-    flat_mode: bool = False,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Pallas tile compositor. Returns (H, W, 4) f32."""
-    tile = cfg.tile
-    p = tile * tile
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((1, 4, p), lambda t, *_: (t, 0, 0), memory_space=pltpu.VMEM),
-    )
-    kernel = functools.partial(_composite_kernel, cfg=cfg, flat_mode=flat_mode)
-    tiles = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((cfg.n_tiles, 4, p), jnp.float32),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-    )(planes.row_starts, planes.tile_counts, planes.ent)
-
-    ntx, nty = cfg.tiles_x, cfg.tiles_y
-    tiles = tiles.transpose(0, 2, 1)  # (T, P, 4)
-    img = tiles.reshape(nty, ntx, tile, tile, 4).transpose(0, 2, 1, 3, 4)
-    img = img.reshape(nty * tile, ntx * tile, 4)
-    return img[: cfg.height, : cfg.width]
-
-
-def composite_tiles(
-    planes: EntryPlanes, cfg: TileConfig, flat_mode: bool = False, backend: str | None = None
-):
-    """Backend dispatcher: Pallas on TPU, jnp elsewhere."""
-    backend = backend or jax.default_backend()
-    if backend == "tpu":
-        return composite_tiles_pallas(planes, cfg, flat_mode=flat_mode)
-    return composite_tiles_jnp(planes, cfg, flat_mode=flat_mode)
+    return _tiles_to_image(tiles, cfg)
 
 
 def over_background(img: jnp.ndarray, background: jnp.ndarray) -> jnp.ndarray:
@@ -299,23 +147,13 @@ def over_background(img: jnp.ndarray, background: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# v2 compositor: consumes payload-carry `SortedEntries` (see binning v2 note)
-# — packed u32 planes, unaligned runs masked in-kernel, means tile-relative.
+# v2 layout: payload-carry `SortedEntries` (see the binning v2 note) —
+# packed u32 planes, unaligned runs, means tile-relative.
 # ---------------------------------------------------------------------------
-
-from .binning import (  # noqa: E402
-    MEAN_FIX_BIAS,
-    MEAN_FIX_SCALE,
-    N_PACKED_PLANES,
-    SortedEntries,
-    _f16_bits_to_f32,
-    unpack2xf16,
-)
 
 
 def _u8_unit(w, shift):
-    """Bits [shift, shift+8) of u32 -> f32 in [0, 1] (via i32: Mosaic has no
-    u32 -> f32 convert)."""
+    """Bits [shift, shift+8) of u32 -> f32 in [0, 1]."""
     return ((w >> jnp.uint32(shift)) & jnp.uint32(0xFF)).astype(jnp.int32).astype(
         jnp.float32
     ) * jnp.float32(1.0 / 255.0)
@@ -325,17 +163,16 @@ LOG2E = 1.4426950408889634  # the alpha pipeline works in log2 units
 
 
 def _chunk_alpha_packed(key, p1, p2, p3, px, py, live, flat_mode: bool):
-    """Packed (1, C) u32 rows + local pixel columns (P, 1) -> (P, C) alpha.
+    """Packed u32 entry words + tile-local pixel coords -> alpha per
+    (pixel, entry), broadcasting entries against pixels.
 
     Plane layout per ops/binning.py: key carries alpha in its low byte
     (pre-clamped to ALPHA_MAX at enumeration); p1 = mean u12.u12 + b u8;
     p2 = conic_ab f16s; p3 = conic_c f16 + r.g u8.
 
-    Cost discipline: the compositor is VPU-compute-bound (~0.5 ms per
-    (P, C)-wide op at the 6M bench), so everything foldable is folded into
-    the narrow (1, C) rows: the -0.5 factor, the exp->exp2 base change, and
-    the sign all pre-scale the conic rows; the quadratic evaluates in 9
-    wide ops via Horner-style nesting.
+    Everything per entry is folded before the per-pixel work: the -0.5
+    factor, the exp->exp2 base change and the sign all pre-scale the conic,
+    so the quadratic costs few per-pixel ops.
     """
     op = _u8_unit(key, 0)
     inv = jnp.float32(1.0 / MEAN_FIX_SCALE)
@@ -351,15 +188,11 @@ def _chunk_alpha_packed(key, p1, p2, p3, px, py, live, flat_mode: bool):
     return _gaussian_alpha(op, mx, my, ca, cb, cc, px, py, live, flat_mode) + (r, g, b)
 
 
-_USE_EXP2 = True
-
-
 def _gaussian_alpha(op, mx, my, ca, cb, cc, px, py, live, flat_mode):
-    # Narrow (1, C) row prep: -0.5 * log2(e) folded into the conic rows.
-    l2 = LOG2E if _USE_EXP2 else 1.0
-    s = jnp.float32(-0.5 * l2)
+    # Per-entry prep: -0.5 * log2(e) folded into the conic.
+    s = jnp.float32(-0.5 * LOG2E)
     a2 = ca * s
-    b2 = cb * jnp.float32(-l2)
+    b2 = cb * jnp.float32(-LOG2E)
     c2 = cc * s
     dx = px - mx
     dy = py - my
@@ -369,13 +202,11 @@ def _gaussian_alpha(op, mx, my, ca, cb, cc, px, py, live, flat_mode):
 
 
 def _alpha_from_power(power2, op, live, flat_mode):
-    """power2 is the Gaussian exponent in LOG2 units (pre-scaled rows)."""
-    # Dead entries zero out through the per-entry opacity row (live is
-    # (1, C)) — one narrow select instead of a (P, C) boolean term.
+    """power2 is the Gaussian exponent in LOG2 units (pre-scaled conic)."""
+    # Dead entries zero out through the per-entry opacity.
     op = jnp.where(live, op, 0.0)
-    cut = FLAT_POWER_CUTOFF * (LOG2E if _USE_EXP2 else 1.0)
     if flat_mode:
-        a = jnp.where(power2 >= jnp.float32(cut), op, 0.0)
+        a = jnp.where(power2 >= jnp.float32(FLAT_POWER_CUTOFF * LOG2E), op, 0.0)
         a = jnp.broadcast_to(a, power2.shape)
     else:
         # Clamp power to <= 0 instead of hard-masking power > 0: the quadratic
@@ -384,47 +215,8 @@ def _alpha_from_power(power2, op, live, flat_mode):
         # flips the center pixel between full alpha and a hole.
         # ALPHA_MAX is pre-applied to the key's alpha byte at enumeration,
         # so no per-pixel clamp is needed here.
-        ex = jnp.exp2 if _USE_EXP2 else jnp.exp
-        a = op * ex(jnp.minimum(power2, 0.0))
+        a = op * jnp.exp2(jnp.minimum(power2, 0.0))
     return jnp.where(a < ALPHA_EPS, 0.0, a)
-
-
-def _chunk_alpha_mxu(key, p1, p2, p3, f_mat, live):
-    """MXU variant of `_chunk_alpha_packed` (splat mode only): the Gaussian
-    exponent is a quadratic in pixel coords, so its (P, C) evaluation is one
-    matmul power = F @ G with F the per-tile pixel quadratic basis
-    [px^2, py^2, px*py, px, py, 1, 0, 0] and G the per-entry coefficients —
-    the VPU only decodes fields (C-wide) and applies exp/masking."""
-    op = _u8_unit(key, 0)
-    inv = jnp.float32(1.0 / MEAN_FIX_SCALE)
-    mx = (p1 & jnp.uint32(0xFFF)).astype(jnp.int32).astype(jnp.float32) * inv - MEAN_FIX_BIAS
-    my = ((p1 >> jnp.uint32(12)) & jnp.uint32(0xFFF)).astype(jnp.int32).astype(
-        jnp.float32
-    ) * inv - MEAN_FIX_BIAS
-    b = _u8_unit(p1, 24)
-    ca, cb = unpack2xf16(p2)
-    cc = _f16_bits_to_f32(p3 & jnp.uint32(0xFFFF))
-    r = _u8_unit(p3, 16)
-    g = _u8_unit(p3, 24)
-    zero = jnp.zeros_like(ca)
-    l2 = jnp.float32(LOG2E)  # _alpha_from_power expects log2-unit exponents
-    g_mat = jnp.concatenate(
-        [
-            -0.5 * l2 * ca,
-            -0.5 * l2 * cc,
-            -l2 * cb,
-            l2 * (ca * mx + cb * my),
-            l2 * (cc * my + cb * mx),
-            -l2 * (0.5 * (ca * mx * mx + cc * my * my) + cb * mx * my),
-            zero,
-            zero,
-        ],
-        axis=0,
-    )  # (8, C)
-    power = jax.lax.dot_general(
-        f_mat, g_mat, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # (P, C)
-    return _alpha_from_power(power, op, live, flat_mode=False), r, g, b
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "flat_mode"))
@@ -434,12 +226,9 @@ def composite_tiles_jnp_v2(
     flat_mode: bool = False,
 ) -> jnp.ndarray:
     """Portable v2 compositor. Returns (H, W, 4) premultiplied rgba."""
-    from .binning import ROW
-
     tile = cfg.tile
     p = tile * tile
-    ntx, nty = cfg.tiles_x, cfg.tiles_y
-    planes = entries.planes  # (4, R, 128)
+    planes = entries.planes  # (R, 4, 128)
 
     lane = jnp.arange(p, dtype=jnp.int32)
     px_local = (lane % tile).astype(jnp.float32)[:, None] + 0.5  # (P, 1)
@@ -464,7 +253,7 @@ def composite_tiles_jnp_v2(
             a, r, g, b = _chunk_alpha_packed(
                 chunk[0:1], chunk[1:2], chunk[2:3], chunk[3:4], px_local, py_local, live, flat_mode
             )
-            incl, excl = _excl_cumprod_lanes(1.0 - a, use_roll=False)
+            incl, excl = _excl_cumprod(1.0 - a)
             # t is constant within the chunk: fold it AFTER the lane
             # reduction ((P, 3) narrow mult) instead of into the (P, C) w.
             w = excl * a
@@ -481,371 +270,109 @@ def composite_tiles_jnp_v2(
         return jnp.concatenate([rgb, 1.0 - t], axis=1)
 
     tiles = jax.vmap(one_tile)(entries.tile_starts, entries.tile_counts)
-    img = tiles.reshape(nty, ntx, tile, tile, 4).transpose(0, 2, 1, 3, 4)
-    img = img.reshape(nty * tile, ntx * tile, 4)
-    return img[: cfg.height, : cfg.width]
+    return _tiles_to_image(tiles, cfg)
 
 
-def _composite_kernel_v2(
-    starts_ref,
-    counts_ref,
-    planes_hbm,
-    out_ref,
-    *,
-    cfg: TileConfig,
-    flat_mode: bool,
-    mxu: bool = False,
-):
-    from .binning import ROW
+# ---------------------------------------------------------------------------
+# v2 layout, GPU: Pallas through Triton
+# ---------------------------------------------------------------------------
 
+# Pixels each thread owns: tile 16 -> 2 warps, tile 32 -> 8 warps.
+_PIXELS_PER_THREAD = 4
+
+
+def _entry_words(planes_ref, e):
+    """The four packed u32 words of flat entry `e` (scalar loads)."""
+    row, lane = e // ROW, e % ROW
+    return tuple(planes_ref[row, k, lane] for k in range(N_PACKED_PLANES))
+
+
+def _composite_kernel_gpu(starts_ref, counts_ref, planes_ref, out_ref, *,
+                          tile: int, flat_mode: bool):
+    """One program per tile; every pixel of the tile is one lane of a (P,)
+    vector held in registers.
+
+    Entries are walked one at a time in depth order (the next entry's words
+    are loaded while the current one is blended). The early-exit test runs
+    at every 128-entry row boundary of the flat entry order, exactly where
+    `composite_tiles_jnp_v2` tests it, so both stop after the same entries.
+    """
     t = pl.program_id(0)
-    tile = cfg.tile
-    p = tile * tile
     start = starts_ref[t]
-    count = counts_ref[t]
+    end = start + counts_ref[t]
     row0 = start // ROW
-    n_chunks = jnp.where(count > 0, (start + count + ROW - 1) // ROW - row0, 0)
+    n_rows = jnp.where(end > start, (end + ROW - 1) // ROW - row0, 0)
+    pix = jax.lax.broadcasted_iota(jnp.int32, (tile * tile,), 0)
+    px = (pix % tile).astype(jnp.float32) + 0.5
+    py = (pix // tile).astype(jnp.float32) + 0.5
 
-    lane = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    px = (lane % tile).astype(jnp.float32) + 0.5  # tile-local pixel coords
-    py = (lane // tile).astype(jnp.float32) + 0.5
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, ROW), 1)
-    if mxu and not flat_mode:
-        # Quadratic-basis pixel matrix for the MXU power matmul (see
-        # _chunk_alpha_mxu): F = [px^2, py^2, px*py, px, py, 1] (P, 8; two
-        # zero columns pad K to the MXU-friendly 8).
-        zero = jnp.zeros_like(px)
-        f_mat = jnp.concatenate(
-            [px * px, py * py, px * py, px, py, jnp.ones_like(px), zero, zero],
-            axis=1,
-        )  # (P, 8)
+    def row_body(state):
+        c, acc = state
+        base = (row0 + c) * ROW
+        lo = jnp.maximum(base, start)
+        hi = jnp.minimum(base + ROW, end)
 
-    def scoped(buf, t_buf, rgb_buf, sems):
-        t_buf[:] = jnp.ones((p, 1), jnp.float32)
-        rgb_buf[:] = jnp.zeros((p, 4), jnp.float32)
+        def entry(e, carry):
+            words, tr, cr, cg, cb = carry
+            nxt = _entry_words(planes_ref, jnp.minimum(e + 1, hi - 1))
+            a, r, g, b = _chunk_alpha_packed(*words, px, py, True, flat_mode)
+            w = tr * a
+            return nxt, tr * (1.0 - a), cr + w * r, cg + w * g, cb + w * b
 
-        def get_dma(slot, c):
-            return pltpu.make_async_copy(
-                planes_hbm.at[pl.ds(row0 + c, 1), :, :],
-                buf.at[slot],
-                sems.at[slot],
-            )
+        carry = jax.lax.fori_loop(lo, hi, entry, (_entry_words(planes_ref, lo), *acc))
+        return c + 1, carry[1:]
 
-        @pl.when(n_chunks > 0)
-        def _():
-            get_dma(0, 0).start()
+    def row_cond(state):
+        c, (tr, *_) = state
+        return (c < n_rows) & (jnp.max(tr) > T_EPS)
 
-        def cond(state):
-            c, _ = state
-            return (c < n_chunks) & (jnp.max(t_buf[:]) > T_EPS)
-
-        def body(state):
-            c, _ = state
-            slot = jax.lax.rem(c, 2)
-            nxt = jax.lax.rem(c + 1, 2)
-
-            @pl.when(c + 1 < n_chunks)
-            def _():
-                get_dma(nxt, c + 1).start()
-
-            get_dma(slot, c).wait()
-            chunk = buf[slot][0]  # (4, ROW) u32
-            gidx = (row0 + c) * ROW + col
-            live = (gidx >= start) & (gidx < start + count)
-            if mxu and not flat_mode:
-                a, r, g, b = _chunk_alpha_mxu(
-                    chunk[0:1], chunk[1:2], chunk[2:3], chunk[3:4], f_mat, live
-                )
-            else:
-                a, r, g, b = _chunk_alpha_packed(
-                    chunk[0:1], chunk[1:2], chunk[2:3], chunk[3:4], px, py, live, flat_mode
-                )
-            incl, excl = _excl_cumprod_lanes(1.0 - a, use_roll=True)
-            tcur = t_buf[:, 0:1]
-            # Fold tcur after the lane reductions ((P, 1) narrow mults)
-            # instead of into the (P, C)-wide w.
-            w = excl * a
-            # The three per-color weighted lane reductions ride the MXU as
-            # ONE (P, C) @ (C, 8) matmul (colors stacked, zero-padded to the
-            # systolic-friendly 8): replaces ~9 VPU-wide mult+reduce ops
-            # with a matmul that is ~2 orders cheaper on the MXU even at
-            # HIGHEST (f32) precision.
-            cmat = jnp.concatenate(
-                [r, g, b, jnp.zeros((5, ROW), jnp.float32)], axis=0
-            )  # (8, C)
-            sums = jax.lax.dot_general(
-                w, cmat, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (P, 8)
-            rgb_buf[:, 0:3] = rgb_buf[:, 0:3] + tcur * sums[:, 0:3]
-            t_buf[:] = tcur * incl[:, ROW - 1 : ROW]
-            return c + 1, 0
-
-        c_final, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), 0))
-
-        # Drain the dangling prefetch DMA on early exit (see v1 note).
-        @pl.when(c_final < n_chunks)
-        def _():
-            get_dma(jax.lax.rem(c_final, 2), c_final).wait()
-
-        rgb_buf[:, 3:4] = 1.0 - t_buf[:]
-        out_ref[0] = rgb_buf[:].T
-
-    pl.run_scoped(
-        scoped,
-        buf=pltpu.VMEM((2, 1, N_PACKED_PLANES, ROW), jnp.uint32),
-        t_buf=pltpu.VMEM((p, 1), jnp.float32),
-        rgb_buf=pltpu.VMEM((p, 4), jnp.float32),
-        sems=pltpu.SemaphoreType.DMA((2,)),
+    one = jnp.ones((tile * tile,), jnp.float32)
+    zero = jnp.zeros((tile * tile,), jnp.float32)
+    _, (tr, cr, cg, cb) = jax.lax.while_loop(
+        row_cond, row_body, (jnp.int32(0), (one, zero, zero, zero))
     )
+    out_ref[0, :] = cr
+    out_ref[1, :] = cg
+    out_ref[2, :] = cb
+    out_ref[3, :] = 1.0 - tr
 
 
-def _excl_cumprod_rows(om: jnp.ndarray):
-    """Inclusive+exclusive cumulative product along axis 0 (sublanes).
-
-    The transposed-orientation twin of `_excl_cumprod_lanes(use_roll=True)`:
-    Hillis-Steele stages become SUBLANE rolls (~4x cheaper than the
-    cross-lane rolls the (P, C) orientation pays — same trade as the sort's
-    lane-major stages). Wrap guard is a narrow (C, 1) row-index mask."""
-    c = om.shape[0]
-    incl = om
-    row = jax.lax.broadcasted_iota(jnp.int32, (c, 1), 0)
-    shift = 1
-    while shift < c:
-        rolled = pltpu.roll(incl, shift, axis=0)
-        rolled = jnp.where(row < shift, 1.0, rolled)
-        incl = incl * rolled
-        shift *= 2
-    rolled = pltpu.roll(incl, 1, axis=0)
-    excl = jnp.where(row < 1, 1.0, rolled)
-    return incl, excl
-
-
-def _rows_to_cols(rows):
-    """Narrow (1, C) rows -> (C, 1) columns via ONE (8, C) -> (C, 8)
-    transpose (padded to 8 rows; a single 2D transpose beats per-row
-    relayouts)."""
-    k = len(rows)
-    assert k <= 8, k
-    c = rows[0].shape[-1]
-    mat = jnp.concatenate(
-        list(rows) + [jnp.zeros((8 - k, c), jnp.float32)], axis=0
-    )  # (8, C)
-    t = mat.T  # (C, 8)
-    return [t[:, i : i + 1] for i in range(k)]
-
-
-def _composite_kernel_v2t(
-    starts_ref,
-    counts_ref,
-    planes_hbm,
-    out_ref,
-    *,
-    cfg: TileConfig,
-    flat_mode: bool,
-    split: int = 1,
-):
-    """Transposed-orientation v2 kernel: compute shape (C entries on
-    SUBLANES, P pixels on lanes). The OIT scan runs along entries, so its
-    log2(C) Hillis-Steele stages ride sublane rolls instead of cross-lane
-    rolls; the color reduction stays one MXU matmul ((8, C) @ (C, P)); the
-    output buffer is natively (4, P) — no final in-kernel transpose. Per
-    chunk the only relayout is one (8, C) -> (C, 8) transpose of the narrow
-    decoded field rows.
-
-    `split` > 1 cuts each tile into `split` horizontal pixel BANDS, one
-    grid cell each, sharing the tile's chunk list: the early exit
-    (saturation) then triggers per band instead of per tile, so an
-    already-opaque band stops pulling chunks while its siblings continue —
-    strictly less (C, P)-wide work whenever saturation depth varies inside
-    a tile, at the cost of re-reading the (4, 128) chunk rows per band
-    (~2 KB, latency-hidden)."""
-    from .binning import ROW
-
-    c = pl.program_id(0)
-    t = c // split if split > 1 else c
-    band = c % split if split > 1 else 0
-    tile = cfg.tile
-    p = tile * tile // split
-    start = starts_ref[t]
-    count = counts_ref[t]
-    row0 = start // ROW
-    n_chunks = jnp.where(count > 0, (start + count + ROW - 1) // ROW - row0, 0)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, p), 1)
-    px = (lane % tile).astype(jnp.float32) + 0.5  # (1, P) tile-local
-    py = (band * (tile // split) + lane // tile).astype(jnp.float32) + 0.5
-    colr = jax.lax.broadcasted_iota(jnp.int32, (1, ROW), 1)
-    l2 = jnp.float32(LOG2E if _USE_EXP2 else 1.0)
-    s = jnp.float32(-0.5) * l2
-    cut = jnp.float32(FLAT_POWER_CUTOFF * (LOG2E if _USE_EXP2 else 1.0))
-
-    def scoped(buf, t_buf, rgb_buf, sems):
-        t_buf[:] = jnp.ones((1, p), jnp.float32)
-        rgb_buf[:] = jnp.zeros((4, p), jnp.float32)
-
-        def get_dma(slot, c):
-            return pltpu.make_async_copy(
-                planes_hbm.at[pl.ds(row0 + c, 1), :, :],
-                buf.at[slot],
-                sems.at[slot],
-            )
-
-        @pl.when(n_chunks > 0)
-        def _():
-            get_dma(0, 0).start()
-
-        def cond(state):
-            c, _ = state
-            return (c < n_chunks) & (jnp.max(t_buf[:]) > T_EPS)
-
-        def body(state):
-            c, _ = state
-            slot = jax.lax.rem(c, 2)
-            nxt = jax.lax.rem(c + 1, 2)
-
-            @pl.when(c + 1 < n_chunks)
-            def _():
-                get_dma(nxt, c + 1).start()
-
-            get_dma(slot, c).wait()
-            chunk = buf[slot][0]  # (4, ROW) u32
-            key, p1, p2, p3 = (chunk[i : i + 1] for i in range(4))
-            gidx = (row0 + c) * ROW + colr
-            live = (gidx >= start) & (gidx < start + count)
-            # Narrow (1, C) decode rows (live folded into opacity), then ONE
-            # transpose to (C, 1) columns.
-            op = jnp.where(live, _u8_unit(key, 0), 0.0)
-            inv = jnp.float32(1.0 / MEAN_FIX_SCALE)
-            mx = (p1 & jnp.uint32(0xFFF)).astype(jnp.int32).astype(
-                jnp.float32) * inv - MEAN_FIX_BIAS
-            my = ((p1 >> jnp.uint32(12)) & jnp.uint32(0xFFF)).astype(
-                jnp.int32).astype(jnp.float32) * inv - MEAN_FIX_BIAS
-            ca, cb = unpack2xf16(p2)
-            cc = _f16_bits_to_f32(p3 & jnp.uint32(0xFFFF))
-            r = _u8_unit(p3, 16)
-            g = _u8_unit(p3, 24)
-            b = _u8_unit(p1, 24)
-            opc, mxc, myc, a2c, b2c, c2c = _rows_to_cols(
-                [op, mx, my, ca * s, cb * -l2, cc * s]
-            )
-            dx = px - mxc  # (C, P)
-            dy = py - myc
-            power2 = (a2c * dx + b2c * dy) * dx + (c2c * dy) * dy
-            if flat_mode:
-                a = jnp.where(power2 >= cut, opc, 0.0)
-                a = jnp.broadcast_to(a, power2.shape)
-            else:
-                ex = jnp.exp2 if _USE_EXP2 else jnp.exp
-                a = opc * ex(jnp.minimum(power2, 0.0))
-            a = jnp.where(a < ALPHA_EPS, 0.0, a)
-            incl, excl = _excl_cumprod_rows(1.0 - a)
-            tcur = t_buf[0:1, :]
-            w = excl * a  # (C, P)
-            cmat = jnp.concatenate(
-                [r, g, b, jnp.zeros((5, ROW), jnp.float32)], axis=0
-            )  # (8, C)
-            sums = jax.lax.dot_general(
-                cmat, w, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )  # (8, P)
-            rgb_buf[0:3, :] = rgb_buf[0:3, :] + tcur * sums[0:3, :]
-            t_buf[:] = tcur * incl[ROW - 1 : ROW, :]
-            return c + 1, 0
-
-        c_final, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), 0))
-
-        @pl.when(c_final < n_chunks)
-        def _():
-            get_dma(jax.lax.rem(c_final, 2), c_final).wait()
-
-        rgb_buf[3:4, :] = 1.0 - t_buf[:]
-        out_ref[0] = rgb_buf[:]
-
-    pl.run_scoped(
-        scoped,
-        buf=pltpu.VMEM((2, 1, N_PACKED_PLANES, ROW), jnp.uint32),
-        t_buf=pltpu.VMEM((1, p), jnp.float32),
-        rgb_buf=pltpu.VMEM((4, p), jnp.float32),
-        sems=pltpu.SemaphoreType.DMA((2,)),
-    )
-
-
-# Bench A/B knob: horizontal pixel bands per tile in the transposed kernel
-# (per-band early exit; see _composite_kernel_v2t). Power of two dividing
-# the tile height with >= 128 pixels per band. Default 1 (off): measured
-# on v5e 2026-08-20 at 6M@1080p, splitting LOSES — composite 10.8 ms at
-# split=1 vs 13.7/20.1/33.8 ms at split=2/4/8. Each band re-decodes the
-# tile's full chunk list ((C,128) loads + field decode scale with bands),
-# while the per-band early exit only saves work when saturation depth
-# varies INSIDE a tile — rare at tile=32 on this scene. Kept as a knob
-# because heavily occluded scenes (deep saturated foregrounds) shift the
-# trade; the kernel is correctness-tested in interpret mode either way.
-SPLIT_DEFAULT = int(_os.environ.get("GS_COMPOSITE_SPLIT", "1"))
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "cfg", "flat_mode", "interpret", "mxu", "transposed", "split"))
-def composite_tiles_pallas_v2(
+@functools.partial(jax.jit, static_argnames=("cfg", "flat_mode", "interpret"))
+def composite_tiles_gpu(
     entries: SortedEntries,
     cfg: TileConfig,
     flat_mode: bool = False,
     interpret: bool = False,
-    mxu: bool = False,
-    transposed: bool = TRANSPOSED_DEFAULT,
-    split: int | None = None,
 ) -> jnp.ndarray:
-    """Pallas v2 compositor. Returns (H, W, 4) f32.
-
-    `transposed` (default) computes per chunk in (C entries on sublanes,
-    P pixels on lanes) so the OIT scan's Hillis-Steele rolls ride sublanes
-    (~4x cheaper than cross-lane) — see `_composite_kernel_v2t`.
-
-    `split` cuts tiles into horizontal pixel bands with independent early
-    exit (transposed kernel only); default from GS_COMPOSITE_SPLIT.
-
-    mxu=True evaluates the per-chunk Gaussian exponent as a quadratic-basis
-    matmul on the MXU (splat mode; row-major kernel only). Measured on v5e
-    it is a wash (~5% slower: Mosaic pads the K=8 contraction to a full 128
-    MXU column, costing more than the VPU ops it saves), so the VPU path is
-    the default; kept as the template for wider-K batched formulations.
-    """
+    """GPU v2 compositor (Pallas, Triton route). Returns (H, W, 4)
+    premultiplied rgba. `interpret` runs the kernel through the Pallas
+    interpreter; only tests set it."""
     tile = cfg.tile
     p = tile * tile
-    use_t = transposed and not mxu
-    split = SPLIT_DEFAULT if split is None else split
-    if not use_t or split < 1 or tile % split or (p // split) % 128:
-        split = 1
-    pb = p // split
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(cfg.n_tiles * split,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((1, 4, pb), lambda t, *_: (t, 0, 0), memory_space=pltpu.VMEM),
-    )
-    if use_t:
-        kernel = functools.partial(
-            _composite_kernel_v2t, cfg=cfg, flat_mode=flat_mode, split=split
-        )
-    else:
-        kernel = functools.partial(
-            _composite_kernel_v2, cfg=cfg, flat_mode=flat_mode, mxu=mxu
-        )
+    if p & (p - 1):
+        raise ValueError(f"tile {tile}: Triton blocks need a power-of-two pixel count")
+    kernel = functools.partial(_composite_kernel_gpu, tile=tile, flat_mode=flat_mode)
     tiles = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((cfg.n_tiles * split, 4, pb), jnp.float32),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
+        out_shape=jax.ShapeDtypeStruct((cfg.n_tiles, 4, p), jnp.float32),
+        grid=(cfg.n_tiles,),
+        out_specs=pl.BlockSpec((None, 4, p), lambda t: (t, 0, 0)),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, p // (32 * _PIXELS_PER_THREAD)), num_stages=1
         ),
+        backend="triton",
+        interpret=interpret,
+        name="composite_tiles_gpu",
     )(entries.tile_starts, entries.tile_counts, entries.planes)
+    return _tiles_to_image(tiles.transpose(0, 2, 1), cfg)
 
-    ntx, nty = cfg.tiles_x, cfg.tiles_y
-    tiles = tiles.transpose(0, 2, 1)  # (T*split, Pb, 4)
-    img = tiles.reshape(nty, ntx, split, tile // split, tile, 4)
-    img = img.transpose(0, 2, 3, 1, 4, 5).reshape(nty * tile, ntx * tile, 4)
-    return img[: cfg.height, : cfg.width]
+
+def composite_tiles_v2(
+    entries: SortedEntries, cfg: TileConfig, flat_mode: bool, impl: str
+) -> jnp.ndarray:
+    """The v2 compositor for implementation `impl` ("gpu" or "cpu")."""
+    if impl == "gpu":
+        return composite_tiles_gpu(entries, cfg, flat_mode=flat_mode)
+    if impl == "cpu":
+        return composite_tiles_jnp_v2(entries, cfg, flat_mode=flat_mode)
+    raise ValueError(f"unknown render implementation {impl!r}")

@@ -1,4 +1,4 @@
-"""Fused per-splat preprocess: the TPU equivalent of the crate's
+"""Fused per-splat preprocess: the JAX equivalent of the crate's
 `Preprocessor` compute pass (driven at reference `src/tab/scene.rs:856-863`,
 16-buffer contract at `src/tab/scene.rs:1835-1852`).
 
@@ -11,7 +11,7 @@ and zero alpha; the binning stage drops them from the sort by keying them to
 the sentinel bucket (SURVEY §7 hard-part (3)).
 
 Everything here is elementwise/small-matmul over (N, ...) arrays: XLA fuses
-it into a handful of VPU kernels; no Pallas needed for this stage.
+it into a handful of elementwise kernels; no hand-written kernel needed.
 """
 
 from __future__ import annotations
@@ -45,9 +45,7 @@ ALPHA_EPS = 1.0 / 255.0
 class PreprocessOut:
     """Per-splat screen-space quantities.
 
-    All fields are FLAT (N,) f32 (valid: bool). (N, 2)/(N, 3) stacked forms
-    materialize sublane/lane-padded between XLA fusion boundaries on TPU
-    (measured 4-64x HBM blowup; PERF_NOTES.md) — hot consumers (binning,
+    All fields are FLAT (N,) f32 (valid: bool) — hot consumers (binning,
     sharded renderer) read the flat fields; the `mean2d`/`conic`/`rgb`
     properties serve small-scale consumers (queries, oracle rasterizer,
     tests)."""
@@ -97,7 +95,7 @@ def camera_position_from_view(view: jnp.ndarray) -> jnp.ndarray:
     """Camera world position from a rigid view matrix: -R^T t."""
     r = view[:3, :3]
     t = view[:3, 3]
-    return -r.T @ t
+    return -jnp.matmul(r.T, t, precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.partial(
@@ -142,10 +140,8 @@ def preprocess(
     color0_rgb, color0_a = unpack_color0(pod)
     cov6c = cov3d_components(pod)  # six (N_pad,) uniques
 
-    # All fixed-size matrix algebra is component-expanded over (N,) arrays:
-    # batched tiny matmuls blow up HBM with tile padding on TPU and round
-    # through bf16 on the MXU, and even (N, 3) stacked intermediates
-    # materialize padded between fusion boundaries (core/covariance.py note).
+    # All fixed-size matrix algebra is component-expanded over (N,) arrays
+    # (core/covariance.py note): f32 elementwise math, no tiny matmuls.
 
     # --- model transform ---
     m3 = model[:3, :3]

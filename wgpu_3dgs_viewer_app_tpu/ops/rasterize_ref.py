@@ -4,7 +4,7 @@ Composites every splat against every pixel in exact global front-to-back
 depth order with full f32 depth — no tiling, no duplication caps, no key
 quantization. O(N * H * W): use only for small scenes (N <~ 4k).
 
-This is the behavioral spec the tiled/Pallas pipeline is validated against
+This is the behavioral spec the tiled pipeline and its kernel are validated against
 (SURVEY §4(c): kernel-level tests against pure-jnp references).
 """
 

@@ -1,9 +1,9 @@
 """Multi-chip sharded rendering over a `jax.sharding.Mesh`.
 
 The reference is a single-GPU app (SURVEY §2.3) — multi-device scaling is a
-*new* capability designed TPU-natively, not a port. Round-2 design
-("slab-owner routing"; replaces the round-1 full `all_gather` whose ICI
-volume was ~44 B x N per device per frame regardless of visibility):
+*new* capability, not a port. Design ("slab-owner routing"; a full
+`all_gather` would move ~44 B x N per device per frame regardless of
+visibility):
 
 - **Splat axis = data parallel.** Pod arrays are sharded over the mesh's
   `splats` axis; preprocess AND tile enumeration AND a first depth-key sort
@@ -15,7 +15,7 @@ volume was ~44 B x N per device per frame regardless of visibility):
   contiguous run per source device, found with a searchsorted against the
   slab boundary keys. A single `ragged_all_to_all` then routes exactly the
   LIVE entries to their slab owners — sentinel (culled) entries sort past
-  the last boundary and are never transmitted, so ICI volume is
+  the last boundary and are never transmitted, so interconnect volume is
   proportional to live on-screen entries, not N.
 - **Owner side.** Each device merges its n_dev received sorted runs (one
   local sort over its ~E_live/n_dev slice), derives per-tile ranges, and
@@ -38,16 +38,14 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..data.compression import Compressions
+from ..ops.backend import render_impl
 from ..ops.binning import (
     SortedEntries,
     TileConfig,
     enumerate_entries_from_pre,
+    sort_entries,
 )
-from ..ops.composite import (
-    composite_tiles_jnp_v2,
-    composite_tiles_pallas_v2,
-    over_background,
-)
+from ..ops.composite import composite_tiles_v2, over_background
 from ..ops.preprocess import preprocess
 
 # Python int, not jnp.uint32(...): a module-level device scalar would
@@ -76,6 +74,19 @@ def last_stats() -> dict | None:
 def make_mesh(devices=None, axis: str = "splats") -> Mesh:
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis,))
+
+
+def mesh_impl(mesh: Mesh) -> tuple:
+    """(render implementation, ragged transport) for the mesh's platform.
+
+    XLA:CPU has no ragged-all-to-all thunk, so the CPU mesh (tests, dryrun)
+    routes with the equal-split `all_to_all`."""
+    impl = render_impl(mesh.devices.ravel()[0].platform)
+    return impl, RAGGED_TRANSPORT[impl]
+
+
+# Whether each implementation routes with `ragged_all_to_all`.
+RAGGED_TRANSPORT = {"gpu": True, "cpu": False}
 
 
 def slab_config(cfg: TileConfig, n_devices: int) -> tuple:
@@ -130,9 +141,9 @@ def _route_entries(planes, axis: str, n_dev: int, boundaries, e_cap: int,
     skew exceeded capacity_factor and splats are missing — raise it).
 
     Transports (`ragged`):
-    - True (TPU): one tiny all_gather of the (n_dev,) send-size rows plus
-      one `ragged_all_to_all` carrying exactly the live entries — ICI
-      volume ∝ live on-screen entries, not N.
+    - True: one tiny all_gather of the (n_dev,) send-size rows plus
+      one `ragged_all_to_all` carrying exactly the live entries —
+      interconnect volume ∝ live on-screen entries, not N.
     - False (CPU fallback — XLA:CPU has no ragged-all-to-all thunk): one
       equal-split `all_to_all` of per-pair runs padded to e_cap/n_dev.
       Same routing metadata; transport volume is the static capacity.
@@ -147,7 +158,7 @@ def _route_entries(planes, axis: str, n_dev: int, boundaries, e_cap: int,
 
     if not ragged:
         # Rounded UP to a 128 multiple so routed rows always reshape to
-        # (rows, 128) even for non-power-of-two device counts (advisor r2).
+        # (rows, 128) even for non-power-of-two device counts.
         cap_pair = -(-e_cap // (n_dev * 128)) * 128
         e_local = planes.shape[0]
         # Pad so a dynamic_slice starting at any live offset stays in range.
@@ -170,7 +181,7 @@ def _route_entries(planes, axis: str, n_dev: int, boundaries, e_cap: int,
         )
         return routed.reshape(-1, planes.shape[1]), dropped
 
-    # Full (n_dev, n_dev) send matrix S[i, j]: tiny, exchanged over ICI.
+    # Full (n_dev, n_dev) send matrix S[i, j]: tiny, exchanged once.
     s_mat = jax.lax.all_gather(send, axis)  # (n_dev src, n_dev dst)
     me = jax.lax.axis_index(axis)
     col = s_mat[:, me]  # sizes every source sends to ME
@@ -240,7 +251,7 @@ def _slab_entries(routed, cfg: TileConfig, slab_cfg: TileConfig,
     jax.jit,
     static_argnames=(
         "mesh", "axis", "comp", "cfg", "sh_degree", "display_mode",
-        "use_pallas", "capacity_factor", "ragged",
+        "impl", "capacity_factor", "ragged",
     ),
 )
 def render_frame_sharded(
@@ -255,9 +266,9 @@ def render_frame_sharded(
     background: jnp.ndarray,
     sh_degree: int = 3,
     display_mode: int = 0,
-    use_pallas: bool = False,
+    impl: str = "cpu",
     capacity_factor: float = 2.0,
-    ragged: bool = True,
+    ragged: bool = False,
 ):
     """Sharded frame -> ((padded_H, W, 3), (n_dev,) overflow); image rows
     beyond cfg.height are blank.
@@ -291,17 +302,8 @@ def render_frame_sharded(
         )
         # 2) local tile enumeration in the GLOBAL key layout + local sort
         #    (the expensive sort is distributed across devices).
-        keys, p1, p2, p3 = enumerate_entries_from_pre(
-            pre_local, cfg, impl="pallas" if use_pallas else "jnp"
-        )
-        if use_pallas:
-            from ..ops.sort import sort_entries
-
-            sk, s1, s2, s3 = sort_entries(keys, p1, p2, p3)
-        else:
-            sk, s1, s2, s3 = jax.lax.sort(
-                (keys, p1, p2, p3), num_keys=1, is_stable=False
-            )
+        keys, p1, p2, p3 = enumerate_entries_from_pre(pre_local, cfg)
+        sk, s1, s2, s3 = sort_entries(keys, p1, p2, p3)
         planes = jnp.stack([sk, s1, s2, s3], axis=1)  # (E_local', 4)
 
         # 3) slab-owner routing: one ragged_all_to_all of live entries only.
@@ -318,11 +320,7 @@ def render_frame_sharded(
         did = jax.lax.axis_index(axis)
         slab_tile0 = did.astype(jnp.int32) * (rows_per_slab * cfg.tiles_x)
         entries = _slab_entries(routed, cfg, slab_cfg, slab_tile0)
-        flat = display_mode != 0
-        if use_pallas:
-            img = composite_tiles_pallas_v2(entries, slab_cfg, flat_mode=flat)
-        else:
-            img = composite_tiles_jnp_v2(entries, slab_cfg, flat_mode=flat)
+        img = composite_tiles_v2(entries, slab_cfg, display_mode != 0, impl)
         return over_background(img, bg_), jnp.reshape(dropped, (1,))
 
     return step(pod, view, proj, model, jnp.asarray(background, jnp.float32))
@@ -332,7 +330,7 @@ def render_frame_sharded(
     jax.jit,
     static_argnames=(
         "mesh", "axis", "comp", "cfg", "sh_degree", "display_mode",
-        "use_pallas", "capacity_factor", "ragged",
+        "impl", "capacity_factor", "ragged",
     ),
 )
 def render_frame_sharded_multi(
@@ -348,9 +346,9 @@ def render_frame_sharded_multi(
     background: jnp.ndarray,
     sh_degree: int = 3,
     display_mode: int = 0,
-    use_pallas: bool = False,
+    impl: str = "cpu",
     capacity_factor: float = 2.0,
-    ragged: bool = True,
+    ragged: bool = False,
 ):
     """Sharded MERGED multi-model frame: every model's entries carry a model
     rank in the sort key (viewer._render_merged semantics — one sort + one
@@ -388,21 +386,11 @@ def render_frame_sharded_multi(
                 pod_local, comp, view_, proj_, models_[i], cfg.width,
                 cfg.height, sh_degree=sh_degree, display_mode=display_mode,
             )
-            parts.append(enumerate_entries_from_pre(
-                pre, cfg_m, impl="pallas" if use_pallas else "jnp",
-                model_rank=ranks_[i],
-            ))
+            parts.append(enumerate_entries_from_pre(pre, cfg_m, model_rank=ranks_[i]))
         keys, p1, p2, p3 = (
             jnp.concatenate([p[j] for p in parts]) for j in range(4)
         )
-        if use_pallas:
-            from ..ops.sort import sort_entries
-
-            sk, s1, s2, s3 = sort_entries(keys, p1, p2, p3)
-        else:
-            sk, s1, s2, s3 = jax.lax.sort(
-                (keys, p1, p2, p3), num_keys=1, is_stable=False
-            )
+        sk, s1, s2, s3 = sort_entries(keys, p1, p2, p3)
         planes = jnp.stack([sk, s1, s2, s3], axis=1)
         boundaries = jnp.minimum(
             jnp.arange(n_dev, dtype=jnp.uint32)
@@ -415,11 +403,7 @@ def render_frame_sharded_multi(
         did = jax.lax.axis_index(axis)
         slab_tile0 = did.astype(jnp.int32) * (rows_per_slab * cfg_m.tiles_x)
         entries = _slab_entries(routed, cfg_m, slab_cfg, slab_tile0)
-        flat = display_mode != 0
-        if use_pallas:
-            img = composite_tiles_pallas_v2(entries, slab_cfg, flat_mode=flat)
-        else:
-            img = composite_tiles_jnp_v2(entries, slab_cfg, flat_mode=flat)
+        img = composite_tiles_v2(entries, slab_cfg, display_mode != 0, impl)
         return over_background(img, bg_), jnp.reshape(dropped, (1,))
 
     return step(pods, view, proj, models, ranks,
@@ -437,7 +421,6 @@ def render_sharded(
     background=(0.0, 0.0, 0.0),
     sh_degree: int = 3,
     display_mode: int = 0,
-    use_pallas: bool | None = None,
     axis: str = "splats",
     capacity_factor: float = 2.0,
     ragged: bool | None = None,
@@ -449,12 +432,9 @@ def render_sharded(
     the slab skew exceeded capacity_factor)."""
     if model is None:
         model = jnp.eye(4)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    impl, default_ragged = mesh_impl(mesh)
     if ragged is None:
-        # XLA:CPU has no ragged-all-to-all thunk; the CPU mesh (tests,
-        # dryrun) uses the equal-split transport.
-        ragged = mesh.devices.ravel()[0].platform == "tpu"
+        ragged = default_ragged
     img, overflow = render_frame_sharded(
         pod,
         mesh,
@@ -467,7 +447,7 @@ def render_sharded(
         jnp.asarray(background, jnp.float32),
         sh_degree=sh_degree,
         display_mode=display_mode,
-        use_pallas=use_pallas,
+        impl=impl,
         capacity_factor=capacity_factor,
         ragged=ragged,
     )

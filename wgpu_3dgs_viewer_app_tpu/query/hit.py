@@ -3,7 +3,7 @@ per-splat hit candidates evaluated in preprocess, resolved by
 `query::hit_pos_by_alpha_range` / `query::hit_pos_by_closest`
 (reference `src/tab/scene.rs:650-676`; measurement flow §3.5).
 
-TPU-native design: the wgpu pipeline appends candidates to a GPU buffer and
+Design: the wgpu pipeline appends candidates to a GPU buffer and
 async-readbacks them to the CPU for resolution. Here resolution happens
 *on device* as reductions over the per-splat preprocess outputs — no
 variable-length candidate buffer, no readback of candidate lists; only the
@@ -53,8 +53,8 @@ def _pixel_ray_world(pixel, view, proj, width, height):
         [u * tan_x, v * tan_y, jnp.float32(1.0)]
     )
     r = view[:3, :3]
-    cam_pos = -r.T @ view[:3, 3]
-    dir_world = r.T @ dir_view
+    cam_pos = -jnp.matmul(r.T, view[:3, 3], precision=jax.lax.Precision.HIGHEST)
+    dir_world = jnp.matmul(r.T, dir_view, precision=jax.lax.Precision.HIGHEST)
     return cam_pos, dir_world
 
 

@@ -4,7 +4,7 @@ Parity with the crate's `QueryTextureOverlay` (visualizes the in-progress
 selection region, reference `src/tab/scene.rs:2002-2014,741-742,2321`) and
 `QueryCursor` (brush cursor ring, `src/tab/scene.rs:2016-2028,779,2323`).
 
-TPU design: both are cheap fused image passes over the composited frame.
+Design: both are cheap fused image passes over the composited frame.
 """
 
 from __future__ import annotations

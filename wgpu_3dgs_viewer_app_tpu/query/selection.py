@@ -53,8 +53,8 @@ def select_brush_segment(pre: PreprocessOut, seg_start, seg_end, radius):
     b = jnp.asarray(seg_end, jnp.float32)
     m = pre.mean2d
     ab = b - a
-    denom = jnp.maximum(jnp.dot(ab, ab), 1e-12)
-    t = jnp.clip(((m - a) @ ab) / denom, 0.0, 1.0)
+    denom = jnp.maximum(jnp.dot(ab, ab, precision=jax.lax.Precision.HIGHEST), 1e-12)
+    t = jnp.clip(jnp.matmul(m - a, ab, precision=jax.lax.Precision.HIGHEST) / denom, 0.0, 1.0)
     closest = a + t[:, None] * ab
     dist2 = jnp.sum((m - closest) ** 2, axis=1)
     inside = dist2 <= jnp.asarray(radius, jnp.float32) ** 2
@@ -78,9 +78,9 @@ def _paint_segment(tex, a, b, radius):
     ys = jnp.arange(h, dtype=jnp.float32)[:, None] + 0.5
     xs = jnp.arange(w, dtype=jnp.float32)[None, :] + 0.5
     ab = b - a
-    denom = jnp.maximum(jnp.dot(ab, ab), 1e-12)
+    denom = jnp.maximum(jnp.dot(ab, ab, precision=jax.lax.Precision.HIGHEST), 1e-12)
     px = jnp.stack([jnp.broadcast_to(xs, (h, w)), jnp.broadcast_to(ys, (h, w))], -1)
-    t = jnp.clip(((px - a) @ ab) / denom, 0.0, 1.0)
+    t = jnp.clip(jnp.matmul(px - a, ab, precision=jax.lax.Precision.HIGHEST) / denom, 0.0, 1.0)
     closest = a + t[..., None] * ab
     dist2 = jnp.sum((px - closest) ** 2, axis=-1)
     return tex | (dist2 <= radius * radius)

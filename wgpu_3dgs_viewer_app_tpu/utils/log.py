@@ -3,7 +3,7 @@
 The reference logs resource creation/teardown and loader progress through
 the `log` crate behind env_logger (`RUST_LOG=debug`, e.g.
 `src/tab/scene.rs:352-356` parse-skip warnings, model add/remove debug
-lines). The TPU port routes the same events through Python `logging` under
+lines). This port routes the same events through Python `logging` under
 the `gs3d` namespace; `configure()` wires the env-var switch (`GS_LOG`,
 default WARNING) so the CLI behaves like env_logger.
 """

@@ -1,4 +1,4 @@
-"""Per-model device buffer set — the TPU equivalent of the crate's
+"""Per-model device buffer set — the JAX equivalent of the crate's
 `MultiModelViewerGaussianBuffers<G>` inventory (reference
 `src/tab/scene.rs:2111-2112` and the buffer list in SURVEY §2.2):
 
@@ -14,7 +14,7 @@ indirect_args / sort args buffers -> not needed: XLA static shapes replace
 gaussians_depth / indices         -> transient values inside the jitted frame
 
 Streaming uploads use donated jit updates (XLA in-place dynamic_update_slice)
-so a chunk upload is O(chunk), not O(capacity) — the TPU analog of
+so a chunk upload is O(chunk), not O(capacity) — the analog of
 `gaussians_buffer.update_range` (`src/tab/scene.rs:2076-2084`).
 """
 
@@ -68,12 +68,6 @@ class GaussianBuffers:
         self.edit_params = jnp.asarray(ep)
         self.selection = jnp.zeros(n, jnp.uint8)
         self.mask = jnp.ones(n, jnp.uint8)
-        # Gate-state tracking: when no edits/selection/mask have ever been
-        # applied, the viewer renders through the fused Pallas front-end
-        # (ops/fused.py) instead of the full gated preprocess.
-        self.edits_active = False
-        self.selection_active = False
-        self.mask_active = False
 
     def __len__(self) -> int:
         return self.loaded
@@ -104,24 +98,20 @@ class GaussianBuffers:
 
     def set_selection(self, bits: np.ndarray) -> None:
         self.selection = self._pad_bits(bits, 0)
-        self.selection_active = True
 
     def set_mask(self, bits: np.ndarray) -> None:
         self.mask = self._pad_bits(bits, 1)
-        self.mask_active = True
 
     def set_edits(self, flags, rgb, params) -> None:
         self.edit_flags = jnp.asarray(flags)
         self.edit_rgb = jnp.asarray(rgb)
         self.edit_params = jnp.asarray(params)
-        self.edits_active = True
 
     def commit_selection_edit(self, pod_flags: int, rgb, params) -> None:
         """Bake the scene-wide selection edit into per-splat edit storage for
         currently-selected splats (the crate's postprocess commit path
         [inferred], export-visible via `gaussians_edit_buffer.download`)."""
         sel = self.selection.astype(bool)
-        self.edits_active = True
         self.edit_flags = jnp.where(sel, jnp.uint32(pod_flags), self.edit_flags)
         self.edit_rgb = jnp.where(sel[:, None], jnp.asarray(rgb, jnp.float32), self.edit_rgb)
         self.edit_params = jnp.where(

@@ -1,14 +1,14 @@
-"""Single- and multi-model viewer — the TPU equivalent of the crate's
+"""Single- and multi-model viewer — the JAX equivalent of the crate's
 `MultiModelViewer<G>` (constructed at reference `src/tab/scene.rs:1963-1980`;
 update_* surface at `src/tab/scene.rs:794-849`; per-frame drive at
 `src/tab/scene.rs:698-874` and paint at `src/tab/scene.rs:2251-2327`).
 
-TPU-native framing: where the crate encodes four GPU passes per model
-(preprocess -> radix sort -> render -> postprocess) with bind groups and
-indirect buffers, here one jitted `render_frame` closes over the whole
-pipeline — XLA sees preprocess+binning+gather and the Pallas compositor as a
-single compiled program per (resolution, compression, degree, mode)
-specialization, the functional analog of the crate's 8-way monomorphization.
+Where the crate encodes four GPU passes per model (preprocess -> radix sort
+-> render -> postprocess) with bind groups and indirect buffers, here one
+jitted `render_frame` closes over the whole pipeline — XLA sees
+preprocess+binning+sort and the tile compositor as a single compiled
+program per (resolution, compression, degree, mode) specialization, the
+functional analog of the crate's 8-way monomorphization.
 
 Multi-model compositing follows the reference: each model renders its own
 sorted pass; model images are blended back-to-front by camera distance of
@@ -29,17 +29,14 @@ from ..core.edit import GaussianEditPod, SelectionHighlightPod
 from ..core.transform import GaussianDisplayMode, GaussianTransform, ModelTransform
 from ..data.compression import Compressions
 from ..data.gaussian import Gaussians
-from ..ops.binning import TileConfig, build_sorted_entries, enumerate_entries_from_pre
-from ..ops.fused import (
-    build_sorted_entries_fused,
-    enumerate_entries_fused,
+from ..ops.backend import render_impl
+from ..ops.binning import (
+    TileConfig,
+    build_sorted_entries,
+    enumerate_entries_from_pre,
     sort_and_range_entries,
 )
-from ..ops.composite import (
-    composite_tiles_jnp_v2,
-    composite_tiles_pallas_v2,
-    over_background,
-)
+from ..ops.composite import composite_tiles_v2, over_background
 from ..ops.preprocess import preprocess
 from ..utils.log import get_logger
 
@@ -55,7 +52,7 @@ from .buffers import GaussianBuffers
         "sh_degree",
         "no_sh0",
         "display_mode",
-        "use_pallas",
+        "impl",
         "with_highlight",
     ),
 )
@@ -75,7 +72,7 @@ def render_frame(
     selection_bits,
     selection_edit,
     highlight_rgba,
-    use_pallas: bool,
+    impl: str,
     with_highlight: bool,
 ) -> jnp.ndarray:
     """One model's full pipeline -> (H, W, 4) premultiplied rgba."""
@@ -99,9 +96,7 @@ def render_frame(
     )
     entries = build_sorted_entries(pre, cfg)
     flat = display_mode != int(GaussianDisplayMode.SPLAT)
-    if use_pallas:
-        return composite_tiles_pallas_v2(entries, cfg, flat_mode=flat)
-    return composite_tiles_jnp_v2(entries, cfg, flat_mode=flat)
+    return composite_tiles_v2(entries, cfg, flat, impl)
 
 
 class ViewerModel:
@@ -141,15 +136,14 @@ class MultiModelViewer:
         comp: Compressions = Compressions(),
         # Product default == headline bench config (tile 32, max_dup 4).
         # max_dup caps tiles-per-splat: 4 is exact for splats spanning
-        # <= 2x2 tiles (64 px) and dims larger ones center-out; measured
-        # error vs the effectively-exact dup=16 at 2M@1080p is mean 5.0e-2,
-        # p99.9 0.55 (tests/test_image_tpu.py::
-        # test_max_dup_truncation_bound_at_bench_scale). Pass max_dup=8
-        # (2.6e-2/0.40) or 16 for quality presets; sort cost scales ~N*dup.
+        # <= 2x2 tiles (64 px) and dims larger ones center-out; the error
+        # bound vs the effectively-exact dup=16 is pinned by
+        # tests/test_image_gpu.py::test_max_dup_truncation_bound_at_bench_scale.
+        # Pass max_dup=8 or 16 for quality presets; sort cost scales ~N*dup.
         tile: int = 32,
         max_dup: int = 4,
         background=(0.0, 0.0, 0.0),
-        use_pallas: Optional[bool] = None,
+        impl: Optional[str] = None,
     ):
         self.cfg = TileConfig(width, height, tile=tile, max_dup=max_dup)
         self.comp = comp
@@ -159,9 +153,7 @@ class MultiModelViewer:
         self.highlight = SelectionHighlightPod()
         self.show_highlight = False
         self.background = np.asarray(background, np.float32)
-        self.use_pallas = (
-            use_pallas if use_pallas is not None else jax.default_backend() == "tpu"
-        )
+        self.impl = impl or render_impl()
         self._view = jnp.eye(4)
         self._proj = jnp.eye(4)
         self._cam_pos = np.zeros(3, np.float32)
@@ -223,9 +215,6 @@ class MultiModelViewer:
             buf.edit_flags = old.edit_flags
             buf.edit_rgb = old.edit_rgb
             buf.edit_params = old.edit_params
-            buf.selection_active = old.selection_active
-            buf.mask_active = old.mask_active
-            buf.edits_active = old.edits_active
             m.buffers = buf
 
     # --- world-state updates (ref `src/tab/scene.rs:794-849`) --------------
@@ -272,26 +261,6 @@ class MultiModelViewer:
         """One model -> (H, W, 4) premultiplied rgba."""
         m = self.models[key]
         gt = self.gaussian_transform
-        if self.use_pallas:
-            # One fused Pallas pass over the pod (ops/fused.py) — the
-            # editing workloads (mask / per-splat edits / selection
-            # edit + highlight) feed the SAME kernel through its gating
-            # inputs, so they pay no XLA-preprocess penalty.
-            entries = build_sorted_entries_fused(
-                m.buffers.pod,
-                self.comp,
-                self.cfg,
-                self._view,
-                self._proj,
-                jnp.asarray(m.transform.matrix()),
-                sh_degree=gt.sh_deg.degree,
-                no_sh0=gt.no_sh0,
-                size=jnp.float32(gt.size),
-                display_mode=int(gt.display_mode),
-                **self._gating_kwargs(m, show_unedited),
-            )
-            flat = int(gt.display_mode) != 0
-            return composite_tiles_pallas_v2(entries, self.cfg, flat_mode=flat)
         sel_edit = None
         if self.selection_edit is not None and not show_unedited:
             f, rgb, params = self.selection_edit.as_arrays()
@@ -316,49 +285,16 @@ class MultiModelViewer:
             m.buffers.selection,
             sel_edit,
             hl,
-            self.use_pallas,
+            self.impl,
             self.show_highlight,
         )
 
-    def _gating_kwargs(self, m, show_unedited: bool) -> dict:
-        """Active gating inputs for the fused kernel (only ACTIVE gates are
-        passed — each presence pattern is its own jit specialization, and
-        the all-idle pattern is the plain orbit fast path)."""
-        kw = {}
-        if m.buffers.mask_active:
-            kw["mask_bits"] = m.buffers.mask
-        if m.buffers.edits_active and not show_unedited:
-            kw["edit"] = (m.buffers.edit_flags, m.buffers.edit_rgb,
-                          m.buffers.edit_params)
-        if m.buffers.selection_active:
-            if self.selection_edit is not None and not show_unedited:
-                f, rgb, params = self.selection_edit.as_arrays()
-                kw["selection_edit"] = (
-                    jnp.asarray(f), jnp.asarray(rgb), jnp.asarray(params)
-                )
-            if self.show_highlight:
-                kw["highlight_rgba"] = jnp.asarray(
-                    self.highlight.rgba, jnp.float32
-                )
-            if "selection_edit" in kw or "highlight_rgba" in kw:
-                kw["selection_bits"] = m.buffers.selection
-        return kw
-
     def _model_entry_planes(self, key: str, cfg, rank, show_unedited: bool):
         """One model's unsorted flat entry planes under `cfg` with
-        `model_rank` = rank (the fused kernel with gating inputs on TPU,
-        the jnp preprocess otherwise)."""
+        `model_rank` = rank."""
         m = self.models[key]
         gt = self.gaussian_transform
         mmat = jnp.asarray(m.transform.matrix())
-        if self.use_pallas:
-            return enumerate_entries_fused(
-                m.buffers.pod, self.comp, cfg, self._view, self._proj, mmat,
-                sh_degree=gt.sh_deg.degree, no_sh0=gt.no_sh0,
-                size=jnp.float32(gt.size), display_mode=int(gt.display_mode),
-                model_rank=rank,
-                **self._gating_kwargs(m, show_unedited),
-            )
         sel_edit = None
         if self.selection_edit is not None and not show_unedited:
             f, rgb, params = self.selection_edit.as_arrays()
@@ -398,10 +334,7 @@ class MultiModelViewer:
         )
         entries = sort_and_range_entries(keys, p1, p2, p3, cfg_m)
         flat = int(self.gaussian_transform.display_mode) != 0
-        if self.use_pallas:
-            img = composite_tiles_pallas_v2(entries, cfg_m, flat_mode=flat)
-        else:
-            img = composite_tiles_jnp_v2(entries, cfg_m, flat_mode=flat)
+        img = composite_tiles_v2(entries, cfg_m, flat, self.impl)
         return over_background(img, self.background)
 
     def render(self, camera: Optional[CameraTrait] = None, show_unedited: bool = False):
